@@ -1,0 +1,236 @@
+"""TiM ternary matmul: Hopper kernel wrappers and their plain versions.
+
+The CUDA kernel (``csrc/tim_matmul.cu``) replaces the reference's four
+Pallas kernels; each has a wrapper here with the reference's role and a
+launch counter:
+
+  ====================  ===========================================
+  wrapper               reference (src/repro/kernels/tim_matmul.py)
+  ====================  ===========================================
+  tim_matmul_single     tim_matmul_pallas / tim_matmul_packed_pallas
+  tim_matmul_fused      tim_matmul_fused_pallas (two-phase)
+  tim_matmul_bitserial  tim_matmul_bitserial_fused_pallas
+  ====================  ===========================================
+
+A wrapper launches the kernel for CUDA tensors and runs the plain
+version (``tim_st_plain``, the S/T decomposition written with torch
+ops) for CPU tensors.  The plain version runs on both devices; on the
+card it equals the kernel bit for bit: the integer products are exact
+(float32 matmuls while |sum| < 2^24; K * 127 stays far below for every
+served K) and the f32 epilogue is the same sequence of correctly
+rounded operations.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.packing import CODES_PER_BYTE, unpack2b
+from repro_torch.kernels import _build
+
+L_BLOCK = 16
+MODES = {"single": 0, "phases": 1, "bits": 2}
+
+# launches per kernel (one table row each); reset by the caller
+LAUNCHES = {"tim_single": 0, "tim_single_packed": 0, "tim_two_phase": 0,
+            "tim_bitserial": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _int_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 codes through a float32 matmul."""
+    if a.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return (a.float() @ w.float()).to(torch.int32)
+
+
+def _clamped_st(a: torch.Tensor, w: torch.Tensor, n_max: int):
+    """Per-L=16-block (S, T) of ``a @ w`` with (n, k) clamped at n_max,
+    summed over blocks in int32: the ADC fidelity access of one pass."""
+    m, k = a.shape
+    pad = (-k) % L_BLOCK
+    if pad:
+        a = F.pad(a, (0, pad))
+        w = F.pad(w, (0, 0, 0, pad))
+    nb = a.shape[1] // L_BLOCK
+    ab = a.float().reshape(m, nb, L_BLOCK).transpose(0, 1)
+    wb = w.float().reshape(nb, L_BLOCK, -1)
+    if a.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    s = torch.bmm(ab, wb)
+    t = torch.bmm(ab.abs(), wb.abs())
+    n = torch.clamp((t + s) * 0.5, max=n_max)
+    kk = torch.clamp((t - s) * 0.5, max=n_max)
+    return ((n - kk).to(torch.int32).sum(0, dtype=torch.int32),
+            (n + kk).to(torch.int32).sum(0, dtype=torch.int32))
+
+
+def _pass_st(a, w, need_t, n_max):
+    if n_max is not None:
+        return _clamped_st(a, w, n_max)
+    s = _int_product(a, w)
+    t = _int_product(a.abs(), w.abs()) if need_t else None
+    return s, t
+
+
+def _epilogue(s, t, w1, w2, i):
+    """i * (cs*S + ct*T), cs = (w1+w2)*0.5, ct = (w1-w2)*0.5 (f32)."""
+    out = (w1 + w2) * 0.5 * s.float()
+    if t is not None:
+        out = out + (w1 - w2) * 0.5 * t.float()
+    return i * out
+
+
+def tim_st_plain(x: torch.Tensor, w_data: torch.Tensor, w1: torch.Tensor,
+                 w2: torch.Tensor, iscale: torch.Tensor, *, mode: str,
+                 packed: bool, need_t: bool, n_max: Optional[int] = None,
+                 bits: int = 0, out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same arguments).
+
+    x: (M, K) int8 (K padded to the packed weight's 4*rows); w_data:
+    (K, N) int8 or (K/4, N) uint8; w1/w2: (N,) f32; iscale: f32 (1,) or
+    (2,) — [i1] or [i1, i2] for the two-phase mode (``bits`` planes for
+    the bit-serial mode, which scales by its step ``iscale[0]``).
+    """
+    w = unpack2b(w_data, axis=0) if packed else w_data
+    if n_max is not None:
+        need_t = True
+    i1 = iscale[0]
+    if mode == "single":
+        s, t = _pass_st(x, w, need_t, n_max)
+        return _epilogue(s, t, w1, w2, i1).to(out_dtype)
+    if mode == "phases":
+        pos = x.clamp(min=0)
+        neg = (-x).clamp(min=0)
+        sp, tp = _pass_st(pos, w, need_t, n_max)
+        sn, tn = _pass_st(neg, w, need_t, n_max)
+        p1 = _epilogue(sp, tp, w1, w2, i1).to(out_dtype)
+        p2 = _epilogue(sn, tn, w1, w2, iscale[1]).to(out_dtype)
+        return (p1 - p2).to(out_dtype)
+    if mode == "bits":
+        if n_max is None:
+            s, t = _pass_st(x, w, need_t, None)
+        else:
+            s = t = 0
+            for b in range(bits):
+                plane = ((x >> b) & 1).to(torch.int8)
+                sb, tb = _clamped_st(plane, w, n_max)
+                s = s + sb * (1 << b)
+                t = t + tb * (1 << b)
+        return _epilogue(s, t, w1, w2, i1).to(out_dtype)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# kernel launch
+# ---------------------------------------------------------------------------
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def _lib():
+    lib = _build.load("tim_matmul")
+    fn = lib.tim_matmul_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def tim_st_launch(x, w_data, w1, w2, iscale, *, mode: str, packed: bool,
+                  need_t: bool, n_max: Optional[int] = None, bits: int = 0,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only; same arguments as
+    ``tim_st_plain``)."""
+    m, k = x.shape
+    n = w_data.shape[1]
+    wk = k // CODES_PER_BYTE if packed else k
+    if packed and k % CODES_PER_BYTE:
+        raise ValueError(f"packed weights need K % 4 == 0, got K={k}")
+    _check(x, "x", torch.int8)
+    _check(w_data, "w", torch.uint8 if packed else torch.int8, (wk, n))
+    _check(w1, "w1", torch.float32, (n,))
+    _check(w2, "w2", torch.float32, (n,))
+    _check(iscale, "iscale", torch.float32,
+           (2,) if mode == "phases" else (1,))
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} not supported by the "
+                         f"kernel (bf16 or f32)")
+    if mode == "bits" and not 1 < bits <= 7:
+        raise ValueError(f"bits={bits}: expected 1 < bits <= 7")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    # int32 (S, T) workspace the kernel's K slices add into atomically
+    planes = (2 if mode == "phases" else 1) * \
+        (2 if need_t or n_max is not None else 1)
+    acc = torch.zeros((planes, m, n), dtype=torch.int32, device=x.device)
+    err = _lib()(x.data_ptr(), w_data.data_ptr(), w1.data_ptr(),
+                 w2.data_ptr(), iscale.data_ptr(), acc.data_ptr(),
+                 out.data_ptr(), m, n, k,
+                 MODES[mode], int(packed), int(need_t),
+                 -1 if n_max is None else int(n_max), int(bits),
+                 int(out_dtype == torch.bfloat16),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, f"tim_matmul[{mode}]")
+    return out
+
+
+def _route(counter: str, x, *args, **kw):
+    if x.is_cuda:
+        LAUNCHES[counter] += 1
+        return tim_st_launch(x, *args, **kw)
+    return tim_st_plain(x, *args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# wrappers (one per reference kernel)
+# ---------------------------------------------------------------------------
+
+def tim_matmul_single(x_q, w_data, w1, w2, i1, *, packed: bool,
+                      need_t: bool, n_max: Optional[int] = None,
+                      out_dtype=torch.float32):
+    """Single-phase ternary matmul (rows 1 and 2 of the kernel table)."""
+    return _route("tim_single_packed" if packed else "tim_single", x_q,
+                  w_data, w1, w2, i1.reshape(1), mode="single",
+                  packed=packed, need_t=need_t, n_max=n_max,
+                  out_dtype=out_dtype)
+
+
+def tim_matmul_fused(x_q, w_data, w1, w2, i1, i2, *, packed: bool,
+                     need_t: bool, n_max: Optional[int] = None,
+                     out_dtype=torch.float32):
+    """Fused two-phase ternary matmul: one launch, one weight read."""
+    iscale = torch.stack([i1.reshape(()), i2.reshape(())])
+    return _route("tim_two_phase", x_q, w_data, w1, w2, iscale,
+                  mode="phases", packed=packed, need_t=need_t, n_max=n_max,
+                  out_dtype=out_dtype)
+
+
+def tim_matmul_bitserial(act_codes, w_data, w1, w2, act_step, *, bits: int,
+                         packed: bool, need_t: bool,
+                         n_max: Optional[int] = None,
+                         out_dtype=torch.float32):
+    """Fused bit-serial matmul: all bit-planes in one launch."""
+    return _route("tim_bitserial", act_codes, w_data, w1, w2,
+                  act_step.reshape(1), mode="bits", packed=packed,
+                  need_t=need_t, n_max=n_max, bits=bits,
+                  out_dtype=out_dtype)
