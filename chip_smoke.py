@@ -11,11 +11,14 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build: every ``csrc/*.cu`` compiled by ``nvcc`` (in parallel);
 3. one phase per ported kernel at the main path's shapes (M = 8 slots
    x 16 tokens = 128 rows; K/N of chatglm3-6b's projections; paged
-   attention at B=8, Sq=16, H=32, Hk=2, D=128, 128 table entries),
+   attention at B=8, Sq=16, H=32, Hk=2, D=128, 128 table entries; the
+   packed-query kernel at the same step's 67 tokens bucketed to 128),
    each held against its plain PyTorch version (TiM: bit for bit;
-   attention: |diff| <= 2^-7 |ref| + 2e-3), timed with CUDA events
-   beside the plain version, the work's bound on the card and, where
-   one PyTorch call computes the same function, that call;
+   attention: |diff| <= 2^-7 |ref| + 2e-3; packed attention also bit
+   for bit against the mixed kernel, token by token, and 0 on padding
+   tokens), timed with CUDA events beside the plain version, the work's
+   bound on the card and, where one PyTorch call computes the same
+   function, that call;
 4. engine runs: chatglm3-6b at full width (random weights from
    ``--seed``) served through ``ServeEngine`` under four ternary
    policies, each with every launch counter set to 0 before the run and
@@ -23,7 +26,15 @@ Phases (any failure exits non-zero; nothing is caught):
    compared with the plain route's (relative L2 <= 0.5, argmax equal
    on >= 3/4 of the slots), and one step is traced with torch.profiler
    (device time by kernel beside the step's wall time);
-5. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+5. layout runs under policy D at full depth, on its params and prompts
+   with 32 new tokens each (with 16, the 12 requests never hold more
+   than 123 blocks, and a pool at the hard floor would not preempt):
+   P0 padded on the default pool (the reference: its first 16 tokens
+   per request equal step 4's policy-D run), P1 token-packed on the
+   default pool, P2 token-packed on a pool at the hard floor
+   ceil(2048 / 16) + 1 = 129 blocks swapping, P3 padded on that pool
+   recomputing; every request's tokens must equal P0's;
+6. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of the JAX package.
 """
@@ -57,6 +68,7 @@ TIM_KERNELS = {
                       "src/repro/kernels/tim_matmul.py:507"),
 }
 ATTN_REPLACES = "src/repro/kernels/paged_attention.py:184"
+PACKED_REPLACES = "src/repro/kernels/paged_attention.py:328"
 
 # served policies: every TiM kernel sits on at least one served path
 POLICIES = {
@@ -200,6 +212,105 @@ def attn_inputs(gen, quant: bool):
     return q, k, v, tables, cache_len + n_new, cache_len, kw
 
 
+def packed_layout(vlen, qoff):
+    """The padded step's tokens flattened by the engine's own
+    ``ServeEngine._flatten_grid`` (bucketed to a power of two, padding
+    tokens with seg -1): per-token seg / kv_valid_len / q_offset, each
+    real token's (slot, column) in the padded grid, and their count."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    cl = qoff.cpu().numpy()
+    nn = (vlen - qoff).cpu().numpy()
+    grid = np.zeros((len(cl), int(nn.max())), np.int32)
+    fake = types.SimpleNamespace(slots=len(cl), block_size=16, cache_len=cl,
+                                 pool=types.SimpleNamespace(num_blocks=0))
+    _, seg, pos, valid, _, _, _ = ServeEngine._flatten_grid(fake, grid, nn,
+                                                            grid)
+    real = int(valid.sum())
+    slot = seg[:real].astype(np.int64)
+    col = (pos[:real] - cl[slot]).astype(np.int64)
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in (seg, pos + valid, pos, slot, col)) + (real,)
+
+
+def packed_attn_phase(gen, iters):
+    import torch
+    from repro_torch.kernels import paged_attention as pk
+    rows = []
+    for label, quant in [("bf16", False), ("int8", True)]:
+        q, k, v, tbl, vlen, qoff, kw = attn_inputs(gen, quant)
+        seg, tvl, tqo, slot, col, real = packed_layout(vlen, qoff)
+        bucket = seg.shape[0]
+        qf = torch.zeros((bucket, 1) + tuple(q.shape[2:]), device="cuda",
+                         dtype=q.dtype)
+        qf[:real, 0] = q[slot, col]
+        args = (qf, k, v, tbl, seg, tvl)
+        out = pk.paged_packed_attention_launch(*args, q_offset=tqo, **kw)
+        ref = pk.paged_packed_attention_plain(*args, q_offset=tqo,
+                                              chunk_kv=1024, **kw)
+        mixed = pk.paged_attention_launch(q, k, v, tbl, vlen, q_offset=qoff,
+                                          **kw)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        tol = ref.float().abs() * 2.0 ** -7 + 2e-3
+        err = float(diff.max())
+        if not bool(torch.isfinite(out.float()).all()) or \
+                bool((diff > tol).any()):
+            raise AssertionError(f"paged_packed_attention {label}: kernel vs "
+                                 f"plain max |diff| {err} exceeds tolerance")
+        if not torch.equal(out[:real, 0], mixed[slot, col]):
+            n_bad = int((out[:real, 0] != mixed[slot, col]).any(-1).any(-1)
+                        .sum())
+            raise AssertionError(f"paged_packed_attention {label}: {n_bad} "
+                                 f"of {real} tokens differ from the mixed "
+                                 f"kernel's output")
+        if bool(out[real:].any()):
+            raise AssertionError(f"paged_packed_attention {label}: padding "
+                                 f"tokens are not 0")
+        ms = time_ms(lambda: pk.paged_packed_attention_launch(
+            *args, q_offset=tqo, **kw), iters)
+        plain_ms = time_ms(lambda: pk.paged_packed_attention_plain(
+            *args, q_offset=tqo, chunk_kv=1024, **kw), max(2, iters // 4))
+        lib_ms = packed_library_ms(qf, k, v, tbl, seg, tvl, iters) \
+            if not quant else None
+        h, d = q.shape[2], q.shape[3]
+        hk, bs = k.shape[2], k.shape[1]
+        pos_bytes = hk * d * k.element_size() * 2 + (hk * 4 if quant else 0)
+        # each slot's valid K/V once (the distinct bytes), q in, out
+        nbytes = 2 * real * h * d * 2 + sum(
+            -(-int(vl) // bs) * bs * pos_bytes
+            for vl, qo in zip(vlen.tolist(), qoff.tolist()) if vl > qo)
+        ops = 4.0 * d * h * float(tvl.sum())
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S)
+        log(f"[kernel paged_packed_attention {label}] T={real} bucket="
+            f"{bucket} H={h} Hk={hk} D={d} slots={tbl.shape[0]} "
+            f"nblk={tbl.shape[1]} max_abs_err={err} bit_equal_to_mixed=True "
+            f"padding_zero=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})")
+        rows.append(dict(label=label, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def packed_library_ms(qf, k, v, tbl, seg, tvl, iters):
+    """scaled_dot_product_attention (enable_gqa) over each token's
+    pre-gathered K/V (the gather itself is not timed) with its validity
+    mask (causality is implied: a token's valid length ends at it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.nn.attention import paged_view
+    rows = tbl[seg.long().clamp(0, tbl.shape[0] - 1)]
+    kg, vg = paged_view(k, rows), paged_view(v, rows)
+    kpos = torch.arange(kg.shape[1], device=qf.device)
+    mask = (kpos[None, :] < tvl[:, None].clamp(min=1))[:, None, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (qf, kg, vg))
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+
+
 def attn_phase(gen, iters):
     import torch
     from repro_torch.kernels import paged_attention as pk
@@ -276,7 +387,7 @@ def attn_library_ms(q, k, v, tbl, vlen, qoff, kw, causal, iters):
 # engine runs
 # ---------------------------------------------------------------------------
 
-def make_requests(vocab: int, seed: int, n: int = 12):
+def make_requests(vocab: int, seed: int, n: int = 12, max_new: int = 16):
     import numpy as np
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(seed)
@@ -293,7 +404,7 @@ def make_requests(vocab: int, seed: int, n: int = 12):
         tail = rng.integers(0, vocab, int(rng.integers(33, 97)))
         prompts[uid] = np.concatenate([prefix, tail.astype(np.int32)])
     prompts[11] = prefix.copy()
-    return [Request(uid, p, 16) for uid, p in enumerate(prompts[:n])]
+    return [Request(uid, p, max_new) for uid, p in enumerate(prompts[:n])]
 
 
 def first_step(params, cfg, seed, impl):
@@ -351,19 +462,55 @@ def profile_step(params, cfg, seed, label):
            if by_name else "device time not measured (no device events)"))
 
 
-def engine_run(label, pol, layers, seed):
-    import torch
+def policy_cfg(pol, layers):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import transformer as tfm
-    from repro_torch.serve.engine import ServeEngine
     base = get_config("chatglm3-6b")
-    cfg = base.replace(
+    return base.replace(
         n_layers=layers, kv_cache_dtype=pol["kv"],
         ternary=base.ternary.replace(encoding=pol["encoding"],
                                      act_mode=pol["act_mode"],
                                      pack=pol["pack"]))
+
+
+def serve(label, params, cfg, seed, max_new=16, **engine_kw):
+    """Serve the 12 requests through ``ServeEngine`` with every launch
+    counter set to 0 just before and read just after; returns (tokens by
+    uid, stats, launch counts, wall s, digest, engine)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import metrics
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(params, cfg, batch_slots=8, max_len=2048, chunk=16,
+                      block_size=16, token_budget=128, device="cuda",
+                      **engine_kw)
+    reqs = make_requests(cfg.vocab_size, seed, max_new=max_new)
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = eng.stats()
+    if len(done) != len(reqs) or any(not r.done for r in reqs):
+        raise AssertionError(f"{label}: not every request finished")
+    if any(len(r.out_tokens) != max_new for r in reqs):
+        raise AssertionError(f"{label}: short outputs")
+    if any(not (0 <= t < cfg.vocab_size) for r in reqs
+           for t in r.out_tokens):
+        raise AssertionError(f"{label}: token outside the vocab")
+    dig = metrics.summarize(reqs, [st], st["steps"])
+    return ({r.uid: list(r.out_tokens) for r in reqs}, st, counts, wall,
+            dig, eng)
+
+
+def engine_run(label, pol, layers, seed, keep=False):
+    import torch
+    cfg = policy_cfg(pol, layers)
+    t0 = time.perf_counter()
+    from repro_torch.models import transformer as tfm
     params = tfm.init(cfg, seed=seed, device="cuda", ternarize=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -372,14 +519,9 @@ def engine_run(label, pol, layers, seed):
     lg_p = first_step(params, cfg, seed, "torch")
     if not bool(torch.isfinite(lg_k[:, :cfg.vocab_size]).all()):
         raise AssertionError(f"policy {label}: non-finite logits")
-    real = slice(0, cfg.vocab_size)
-    d = (lg_k[:, real] - lg_p[:, real])
-    rel = float(d.norm() / lg_p[:, real].norm())
-    agree = float((lg_k[:, real].argmax(-1) == lg_p[:, real].argmax(-1)
-                   ).float().mean())
+    rel, agree, max_abs = logits_agreement(lg_k, lg_p, cfg.vocab_size)
     log(f"[engine {label}] first-step logits kernel vs plain: rel_l2="
-        f"{rel:.3e} max_abs={float(d.abs().max()):.4f} "
-        f"argmax_agree={agree:.3f}")
+        f"{rel:.3e} max_abs={max_abs:.4f} argmax_agree={agree:.3f}")
     # The TiM kernels equal their plain versions bit for bit and paged
     # attention agrees to ~1 bf16 ulp (kernel phases above); through
     # 28 layers of ternary/int4 activation quantization such an ulp can
@@ -394,27 +536,9 @@ def engine_run(label, pol, layers, seed):
 
     profile_step(params, cfg, seed, label)
 
-    eng = ServeEngine(params, cfg, batch_slots=8, max_len=2048, chunk=16,
-                      block_size=16, token_budget=128, device="cuda")
-    reqs = make_requests(cfg.vocab_size, seed)
-    for r in reqs:
-        eng.submit(r)
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    st = eng.stats()
-    gen_tok = sum(len(r.out_tokens) for r in done)
-    if len(done) != len(reqs) or any(not r.done for r in reqs):
-        raise AssertionError(f"policy {label}: not every request finished")
-    if any(len(r.out_tokens) != 16 for r in reqs):
-        raise AssertionError(f"policy {label}: short outputs")
-    if any(not (0 <= t < cfg.vocab_size) for r in reqs
-           for t in r.out_tokens):
-        raise AssertionError(f"policy {label}: token outside the vocab")
+    toks, st, counts, wall, dig, eng = serve(f"policy {label}", params, cfg,
+                                             seed)
+    gen_tok = sum(map(len, toks.values()))
     need = POLICY_KERNELS[label] + ["paged_attention"]
     missing = [k for k in need if counts[k] <= 0]
     if missing:
@@ -430,16 +554,105 @@ def engine_run(label, pol, layers, seed):
         f"cow_copies={st['cow_copies']} wall_s={wall:.3f} "
         f"tokens_per_s={st['scheduled_tokens'] / wall:.1f} "
         f"generated_per_s={gen_tok / wall:.2f} launches={counts}")
-    del eng, params
+    log_run(f"{label} padded default pool", st, wall, dig, eng)
+    del eng
+    kept = (params, cfg, toks, st) if keep else None
+    if not keep:
+        del params
     torch.cuda.empty_cache()
-    return counts, wall
+    return counts, wall, kept
+
+
+def logits_agreement(a, b, vocab):
+    """(relative L2 of a - b, argmax agreement, max |a - b|) over the
+    real vocabulary."""
+    real = slice(0, vocab)
+    d = a[:, real] - b[:, real]
+    rel = float(d.norm() / b[:, real].norm())
+    agree = float((a[:, real].argmax(-1) == b[:, real].argmax(-1)
+                   ).float().mean())
+    return rel, agree, float(d.abs().max())
+
+
+def log_run(label, st, wall, dig, eng):
+    log(f"[run {label}] wall_s={wall:.3f} ms_per_step="
+        f"{wall / st['steps'] * 1e3:.2f} steps={st['steps']} "
+        f"grid_tokens={st['grid_tokens']} "
+        f"scheduled_tokens={st['scheduled_tokens']} "
+        f"padding_efficiency={dig.get('padding_efficiency')} "
+        f"ttft_steps_p50={dig.get('ttft_steps_p50')} "
+        f"tpot_steps_p50={dig.get('tpot_steps_p50')} "
+        f"preemptions={st['preemptions']} "
+        f"swapped_out_blocks={st['swapped_out_blocks']} "
+        f"swapped_in_blocks={st['swapped_in_blocks']} "
+        f"swapped_in_tokens={st['swapped_in_tokens']} "
+        f"recompute_tokens={st['recompute_tokens']} "
+        f"swap_d2h_fetches={st['swap_d2h_fetches']} "
+        f"swap_d2h_bytes={eng.swap_d2h_bytes} "
+        f"swap_d2h_s={eng.swap_d2h_seconds:.4f}")
+
+
+# the layout runs (policy D, full depth): engine options; P0 is the
+# reference the others are held to
+LAYOUT_NEW = 32
+FLOOR_BLOCKS = 2048 // 16 + 1
+LAYOUT_RUNS = {
+    "P0": dict(packed=False),
+    "P1": dict(packed=True),
+    "P2": dict(packed=True, num_blocks=FLOOR_BLOCKS, preempt="swap"),
+    "P3": dict(packed=False, num_blocks=FLOOR_BLOCKS, preempt="recompute"),
+}
+
+
+def layout_runs(params, cfg, seed, base_toks):
+    """P0-P3; returns the packed kernel's launches in P1 + P2.  Every run
+    goes through before a failure is raised.  ``base_toks``: step 4's
+    policy-D tokens (16 per request)."""
+    launches, failures, ref, ref_st = 0, [], None, None
+    for name, kw in LAYOUT_RUNS.items():
+        toks, st, counts, wall, dig, eng = serve(name, params, cfg, seed,
+                                                 max_new=LAYOUT_NEW, **kw)
+        log_run(f"{name} {kw}", st, wall, dig, eng)
+        log(f"[run {name}] launches={counts}")
+        del eng
+        if ref is None:
+            ref, ref_st = toks, st
+            if any(toks[u][:len(t)] != t for u, t in base_toks.items()):
+                failures.append("P0: the first 16 tokens differ from the "
+                                "policy-D run's")
+            continue
+        bad = [u for u in ref if toks[u] != ref[u]]
+        n_diff = sum(a != b for u in bad for a, b in zip(toks[u], ref[u]))
+        log(f"[run {name}] tokens equal to P0's: {not bad} (requests "
+            f"differing: {bad}, tokens differing: {n_diff} of "
+            f"{sum(map(len, toks.values()))})")
+        if bad:
+            failures.append(f"{name}: requests {bad} got other tokens than "
+                            f"P0")
+        if kw["packed"]:
+            if counts["paged_packed_attention"] <= 0:
+                failures.append(f"{name}: the packed kernel never launched")
+            launches += counts["paged_packed_attention"]
+        if name == "P1" and st["grid_tokens"] >= ref_st["grid_tokens"]:
+            failures.append(f"P1: grid_tokens {st['grid_tokens']} not below "
+                            f"P0's {ref_st['grid_tokens']}")
+        if "num_blocks" in kw and st["preemptions"] <= 0:
+            failures.append(f"{name}: the hard-floor pool never preempted")
+        if kw.get("preempt") == "swap" and (st["swapped_out_blocks"] <= 0
+                                            or st["swapped_in_blocks"] <= 0):
+            failures.append(f"{name}: nothing was swapped: {st}")
+        if kw.get("preempt") == "recompute" and st["recompute_tokens"] <= 0:
+            failures.append(f"{name}: nothing was recomputed: {st}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=28,
-                    help="depth of the served chatglm3-6b (full: 28)")
+                    help="depth of every engine run (full: 28)")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -471,13 +684,19 @@ def main(argv=None) -> int:
     tim_rows = {n: tim_phase(n, s, gen, args.iters)
                 for n, s in TIM_KERNELS.items()}
     attn_rows = attn_phase(gen, args.iters)
+    packed_rows = packed_attn_phase(gen, args.iters)
 
     launches = {n: 0 for n in list(TIM_KERNELS) + ["paged_attention"]}
+    kept = None
     for label in POLICIES:
-        counts, _ = engine_run(label, POLICIES[label], args.layers,
-                               args.seed)
-        for k in launches:
-            launches[k] += counts[k]
+        counts, _, k = engine_run(label, POLICIES[label], args.layers,
+                                  args.seed, keep=label == "D")
+        kept = k or kept
+        for n in launches:
+            launches[n] += counts[n]
+    params, cfg, base_toks, _ = kept
+    launches["paged_packed_attention"] = layout_runs(params, cfg, args.seed,
+                                                     base_toks)
 
     kernels = []
     for name, spec in TIM_KERNELS.items():
@@ -497,6 +716,15 @@ def main(argv=None) -> int:
         max_abs_err=max(x["max_abs_err"] for x in attn_rows), ms=a["ms"],
         plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"]))
+    p = packed_rows[0]
+    kernels.append(dict(
+        name="paged_packed_attention", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces=PACKED_REPLACES,
+        launches=launches["paged_packed_attention"],
+        max_abs_err=max(x["max_abs_err"] for x in packed_rows), ms=p["ms"],
+        plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+        bound_by=p["bound_by"], library_ms=p["library_ms"]))
     never = [k["name"] for k in kernels if k["launches"] <= 0]
     if never:
         raise AssertionError(f"kernels never launched on the main path: "

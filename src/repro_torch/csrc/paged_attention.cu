@@ -1,10 +1,12 @@
 // Paged GQA attention for Hopper (sm_90a): the block-table gather runs
 // inside the kernel.
 //
-// Replaces the Pallas TPU kernel paged_attention_pallas
-// (src/repro/kernels/paged_attention.py, _paged_attn_kernel) for
-// normalize=True with an uncompacted table, causal or not, bf16 or
-// int8 KV.
+// Replaces two Pallas TPU kernels of src/repro/kernels/paged_attention.py
+// that share _paged_attn_kernel:
+//  * paged_attention_pallas for normalize=True with an uncompacted
+//    table, causal or not, bf16 or int8 KV (paged_attention_launch);
+//  * paged_packed_attention_pallas, the token-packed layout's T
+//    single-token queries (paged_packed_attention_launch).
 //
 // Function: q (B, Sq, H, D) bf16; K/V pools (nb, bs, Hk, D) bf16, or
 // int8 codes with (nb, bs, Hk) bf16 scales; tables (B, nblk) int32;
@@ -28,6 +30,17 @@
 // softmax is taken per KV block instead of per chunk_kv positions,
 // which changes rounding (not the function); the plain version beside
 // the wrapper is the reference for the tolerance.
+//
+// Packed queries: q (T, 1, H, D) with per-token seg_ids, kv_valid_len
+// and q_offset (T,); token t reads row clamp(seg[t], 0, slots-1) of the
+// per-SLOT table (slots, nblk) inside the kernel, so no (T, nblk)
+// gathered table exists.  It is the same compiled kernel with Sq = 1
+// and a table-row indirection: every token row runs exactly the mixed
+// route's per-row arithmetic, and since blocks past a row's position are
+// masked to an exact no-op there (p = 0, corr = 1), a packed token's
+// output equals the mixed grid's output for that token bit for bit.
+// Tokens of one slot each re-read that slot's K/V (from L2 after the
+// first), a cost the padded grid's shared 16-row tile does not pay.
 //
 // Bound: memory (each slot's valid K/V bytes are read once per 16-row
 // tile, from L2 after the first); this first kernel is limited by its
@@ -64,10 +77,12 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k_scale,
                   const __nv_bfloat16* __restrict__ v_scale,
                   const int* __restrict__ tables,
+                  const int* __restrict__ seg,
                   const int* __restrict__ vlen_arr,
                   const int* __restrict__ qoff_arr,
                   __nv_bfloat16* __restrict__ out, int Sq, int H, int Hk,
-                  int D, int nb, int bs, int nblk, float qscale) {
+                  int D, int nb, int bs, int nslots, int nblk,
+                  float qscale) {
   extern __shared__ float smem[];
   float* ks = smem;            // (bs, D)
   float* vs = smem + bs * D;   // (bs, D)
@@ -76,6 +91,8 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int G = H / Hk, gsq = G * Sq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int vl = vlen_arr[b], qo = qoff_arr[b];
+  // the table row: the slot itself, or (packed) the token's segment
+  const int row = seg ? min(max(seg[b], 0), nslots - 1) : b;
 
   float qr[ROWS_PER_WARP][DPL], acc[ROWS_PER_WARP][DPL];
   float m[ROWS_PER_WARP], l[ROWS_PER_WARP];
@@ -104,7 +121,7 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int nblocks = min(nblk, (vl + bs - 1) / bs);
   for (int e = 0; e < nblocks; ++e) {
-    const int pb = min(max(tables[(size_t)b * nblk + e], 0), nb - 1);
+    const int pb = min(max(tables[(size_t)row * nblk + e], 0), nb - 1);
     __syncthreads();
     for (int idx = threadIdx.x; idx < bs * D; idx += WARPS * 32) {
       const int j = idx / D, d = idx % D;
@@ -185,49 +202,45 @@ template <int DPL, bool QUANT>
 void launch_causal(bool causal, dim3 grid, size_t smem, cudaStream_t st,
                    const __nv_bfloat16* q, const void* k, const void* v,
                    const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                   const int* tbl, const int* vlen, const int* qoff,
-                   __nv_bfloat16* out, int Sq, int H, int Hk, int D, int nb,
-                   int bs, int nblk, float qscale) {
+                   const int* tbl, const int* seg, const int* vlen,
+                   const int* qoff, __nv_bfloat16* out, int Sq, int H,
+                   int Hk, int D, int nb, int bs, int nslots, int nblk,
+                   float qscale) {
   if (causal)
     paged_attn_kernel<DPL, QUANT, true><<<grid, WARPS * 32, smem, st>>>(
-        q, k, v, ks, vs, tbl, vlen, qoff, out, Sq, H, Hk, D, nb, bs, nblk,
-        qscale);
+        q, k, v, ks, vs, tbl, seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
+        nslots, nblk, qscale);
   else
     paged_attn_kernel<DPL, QUANT, false><<<grid, WARPS * 32, smem, st>>>(
-        q, k, v, ks, vs, tbl, vlen, qoff, out, Sq, H, Hk, D, nb, bs, nblk,
-        qscale);
+        q, k, v, ks, vs, tbl, seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
+        nslots, nblk, qscale);
 }
 
 template <int DPL>
 void launch_quant(bool quant, bool causal, dim3 grid, size_t smem,
                   cudaStream_t st, const __nv_bfloat16* q, const void* k,
                   const void* v, const __nv_bfloat16* ks,
-                  const __nv_bfloat16* vs, const int* tbl, const int* vlen,
-                  const int* qoff, __nv_bfloat16* out, int Sq, int H, int Hk,
-                  int D, int nb, int bs, int nblk, float qscale) {
+                  const __nv_bfloat16* vs, const int* tbl, const int* seg,
+                  const int* vlen, const int* qoff, __nv_bfloat16* out,
+                  int Sq, int H, int Hk, int D, int nb, int bs, int nslots,
+                  int nblk, float qscale) {
   if (quant)
     launch_causal<DPL, true>(causal, grid, smem, st, q, k, v, ks, vs, tbl,
-                             vlen, qoff, out, Sq, H, Hk, D, nb, bs, nblk,
-                             qscale);
+                             seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
+                             nslots, nblk, qscale);
   else
     launch_causal<DPL, false>(causal, grid, smem, st, q, k, v, ks, vs, tbl,
-                              vlen, qoff, out, Sq, H, Hk, D, nb, bs, nblk,
-                              qscale);
+                              seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
+                              nslots, nblk, qscale);
 }
 
-}  // namespace
-
-// Shapes as in the header; D <= 256, bs <= 32, bs * D <= 6144 (the two
-// staged f32 tiles fit 48 KB of shared memory), H % Hk == 0.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// shape the kernel does not take).
-extern "C" int paged_attention_launch(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* k_scale, const void* v_scale, const void* tables,
-    const void* vlen, const void* qoff, void* out, int B, int Sq, int H,
-    int Hk, int D, int nb, int bs, int nblk, int causal, int quant,
-    float qscale, void* stream) {
-  if (D < 1 || D > 256 || bs < 1 || bs > 32 || H % Hk != 0)
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* k_scale, const void* v_scale, const void* tables,
+           const void* seg, const void* vlen, const void* qoff, void* out,
+           int B, int Sq, int H, int Hk, int D, int nb, int bs, int nslots,
+           int nblk, int causal, int quant, float qscale, void* stream) {
+  if (D < 1 || D > 256 || bs < 1 || bs > 32 || Hk < 1 || H % Hk != 0 ||
+      nslots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int gsq = (H / Hk) * Sq;
   dim3 grid((gsq + ROWS - 1) / ROWS, Hk, B);
@@ -238,21 +251,57 @@ extern "C" int paged_attention_launch(
   auto* ks = static_cast<const __nv_bfloat16*>(k_scale);
   auto* vs = static_cast<const __nv_bfloat16*>(v_scale);
   auto* tb = static_cast<const int*>(tables);
+  auto* sg = static_cast<const int*>(seg);
   auto* vl = static_cast<const int*>(vlen);
   auto* qo = static_cast<const int*>(qoff);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   const int dpl = (D + 31) / 32;
   if (dpl <= 1)
     launch_quant<1>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, vl, qo, ob, Sq, H, Hk, D, nb, bs, nblk, qscale);
+                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
+                    nblk, qscale);
   else if (dpl <= 2)
     launch_quant<2>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, vl, qo, ob, Sq, H, Hk, D, nb, bs, nblk, qscale);
+                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
+                    nblk, qscale);
   else if (dpl <= 4)
     launch_quant<4>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, vl, qo, ob, Sq, H, Hk, D, nb, bs, nblk, qscale);
+                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
+                    nblk, qscale);
   else
     launch_quant<8>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, vl, qo, ob, Sq, H, Hk, D, nb, bs, nblk, qscale);
+                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
+                    nblk, qscale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shapes as in the header; D <= 256, bs <= 32, bs * D <= 6144 (the two
+// staged f32 tiles fit 48 KB of shared memory), H % Hk == 0.  Each
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// a shape the kernel does not take).
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* vlen, const void* qoff, void* out, int B, int Sq, int H,
+    int Hk, int D, int nb, int bs, int nblk, int causal, int quant,
+    float qscale, void* stream) {
+  return launch(q, k_pool, v_pool, k_scale, v_scale, tables, nullptr, vlen,
+                qoff, out, B, Sq, H, Hk, D, nb, bs, B, nblk, causal, quant,
+                qscale, stream);
+}
+
+// Token-packed: q (T, 1, H, D); tables (nslots, nblk) per slot; seg,
+// vlen, qoff (T,).  Always causal.
+extern "C" int paged_packed_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* seg, const void* vlen, const void* qoff, void* out, int T,
+    int H, int Hk, int D, int nb, int bs, int nslots, int nblk, int quant,
+    float qscale, void* stream) {
+  if (seg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k_pool, v_pool, k_scale, v_scale, tables, seg, vlen,
+                qoff, out, T, 1, H, Hk, D, nb, bs, nslots, nblk, 1, quant,
+                qscale, stream);
 }

@@ -13,7 +13,9 @@ Params tree::
 Modes: 'prefill' (contiguous caches from position 0), 'decode' (one
 token per slot) and 'mixed' (the serving engine's unified step: S
 tokens per slot at per-slot ``cache_len`` offsets, the first
-``n_new[b]`` real).  With ``block_tables``/``slot_map`` the KV caches
+``n_new[b]`` real).  Mixed mode with ``seg_ids`` is the token-packed
+layout: B = T tokens, S = 1, ``cache_len``/``n_new`` per token (its
+position, 1 or 0) and ``seg_ids`` each token's slot.  With ``block_tables``/``slot_map`` the KV caches
 are a global block pool (``init_paged_caches``).  Caches are updated
 in place (and also returned, as the reference returns new caches).
 """
@@ -172,13 +174,15 @@ def _kv_quantize(t: torch.Tensor):
     return codes.to(torch.int8), scale.to(torch.bfloat16)
 
 
-def _write_index(pool_shape, b: int, s: int, cache_len, n_new, slot_map):
+def _write_index(pool_shape, b: int, s: int, cache_len, n_new, slot_map,
+                 seg_ids=None):
     """(source rows of the (B*S) token grid, destination flat cache
     positions) of the tokens that write.  Padding columns (col >=
     n_new) and out-of-capacity positions are dropped, as the reference's
     ``mode="drop"`` scatter drops them: a padding column must never
-    write into the shared pool.  Computed on the device of the inputs
-    (host tensors keep the scheduler free of device syncs)."""
+    write into the shared pool.  Token-packed contiguous caches write
+    row ``seg_ids[t]`` instead of row t.  Computed on the device of the
+    inputs (host tensors keep the scheduler free of device syncs)."""
     dev = cache_len.device
     col = torch.arange(s, device=dev)[None, :]
     nn_ = torch.full((b,), s, device=dev) if n_new is None \
@@ -190,7 +194,8 @@ def _write_index(pool_shape, b: int, s: int, cache_len, n_new, slot_map):
         nrows, smax = pool_shape[0], pool_shape[1]
         cap = nrows * smax
         row = cache_len.long()[:, None] + col
-        rid = torch.arange(b, device=dev)[:, None]
+        rid = torch.arange(b, device=dev)[:, None] if seg_ids is None \
+            else seg_ids.to(dev).long().clamp(0, nrows - 1)[:, None]
         pos = torch.where(row < smax, rid * smax + row,
                           torch.full_like(row, cap))
     widx = torch.where(col < nn_[:, None], pos,
@@ -258,8 +263,10 @@ def _attn_block_apply(p, x, cfg: ArchConfig, positions, mode, cache,
             _scatter_(cache["k"], k, src, dst)
             _scatter_(cache["v"], v, src, dst)
             kd, vd = cache["k"], cache["v"]
-        o = attn.mixed_attention(q, kd, vd, chunk_kv=cfg.attn_chunk_kv,
-                                 impl=attn_impl, **attn_kw, **scale_kw)
+        fn = attn.packed_mixed_attention if "seg_ids" in attn_kw \
+            else attn.mixed_attention
+        o = fn(q, kd, vd, chunk_kv=cfg.attn_chunk_kv, impl=attn_impl,
+               **attn_kw, **scale_kw)
 
     o = ternary_dense_apply(p["o"], o.reshape(b, s, h * hd), pol, cd)
     return x + o.to(x.dtype)
@@ -272,8 +279,13 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
             n_new: Optional[torch.Tensor] = None,
             block_tables: Optional[torch.Tensor] = None,
             slot_map: Optional[torch.Tensor] = None,
-            impl: Optional[str] = None):
+            impl: Optional[str] = None,
+            seg_ids: Optional[torch.Tensor] = None):
     """Returns (hidden (B, S, d), caches, aux 0.0).
+
+    ``seg_ids`` (T,) selects the token-packed layout (mixed mode only):
+    B = T single-token rows, ``cache_len``/``n_new`` per token, paged
+    ``block_tables`` still per slot, ``slot_map`` (T, 1).
 
     ``cache_len``/``n_new``/``slot_map`` may live on the host: the
     write positions are resolved where they live and only the result
@@ -286,6 +298,8 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                                   f"{MODES}")
     if caches is None:
         raise ValueError(f"mode {mode!r} needs caches")
+    if seg_ids is not None and mode != "mixed":
+        raise ValueError("seg_ids (token-packed) needs mode='mixed'")
     attn_impl = "auto"
     if impl is not None:
         cfg = cfg.replace(ternary=cfg.ternary.replace(impl=impl))
@@ -302,12 +316,15 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
         cl = cache_len.to(dev)
         positions = cl[:, None] + ar
         write = tuple(t.to(dev) for t in _write_index(
-            caches[0]["k"].shape, b, s, cache_len, n_new, slot_map))
+            caches[0]["k"].shape, b, s, cache_len, n_new, slot_map,
+            seg_ids))
         nn_ = torch.full((b,), s, device=dev, dtype=cl.dtype) \
             if n_new is None else n_new.to(dev)
         attn_kw = dict(kv_valid_len=cl + nn_, q_offset=cl,
                        block_tables=None if block_tables is None
                        else block_tables.to(dev))
+        if seg_ids is not None:
+            attn_kw["seg_ids"] = seg_ids.to(dev)
 
     for lp, cache in zip(params["layers"], caches):
         x = _attn_block_apply(lp, x, cfg, positions, mode, cache, attn_kw,

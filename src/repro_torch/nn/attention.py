@@ -13,6 +13,11 @@ larger than one ``chunk_kv`` go through the paged scan, routed by
 scan for CPU tensors; ``'torch'`` always runs the plain scan.  Caches
 that fit one chunk use ``full_attention`` on the gathered view on every
 route, as the reference does.
+
+Token-packed layout (``packed_mixed_attention``): T single-token
+queries, each with its segment (slot) id, validity length and offset;
+paged caches keep the per-slot block table, which the packed kernel
+indexes by segment inside the kernel.
 """
 from __future__ import annotations
 
@@ -185,3 +190,41 @@ def mixed_attention(q, k_cache, v_cache, kv_valid_len, q_offset,
                              kv_valid_len=kv_valid_len,
                              block_tables=block_tables, k_scale=k_scale,
                              v_scale=v_scale, impl=impl)
+
+
+def packed_mixed_attention(q, k_cache, v_cache, seg_ids, kv_valid_len,
+                           q_offset, chunk_kv: int = 1024, block_tables=None,
+                           k_scale=None, v_scale=None, impl: str = "auto"):
+    """Token-packed mixed attention: q (T, 1, H, D), token t of segment
+    ``seg_ids[t]`` (clamped to [0, slots-1]; bucket padding rides along
+    with ``kv_valid_len == 0``) attends causally over ``[0,
+    kv_valid_len[t])`` from position ``q_offset[t]`` — ``mixed_attention``
+    at B = T, S = 1 against a per-token cache view, so each token's
+    output is the padded grid's for that token.
+
+    Contiguous caches (slots, S_max, Hk, D) take each token's segment
+    row.  Paged caches keep the per-slot ``block_tables``: caches that
+    fit one ``chunk_kv`` take ``full_attention`` on the gathered view;
+    larger ones the packed kernel ('auto', CUDA tensors) or the plain
+    scan on the per-token table rows ('torch', or CPU tensors)."""
+    nslots = (block_tables.shape[0] if block_tables is not None
+              else k_cache.shape[0])
+    seg = seg_ids.to(q.device).long().clamp(0, nslots - 1)
+    if block_tables is None:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("KV scales only page with block_tables")
+        return chunked_attention(q, k_cache[seg], v_cache[seg], causal=True,
+                                 chunk_kv=chunk_kv, q_offset=q_offset,
+                                 kv_valid_len=kv_valid_len)
+    if impl not in ("auto", "torch"):
+        raise ValueError(f"impl {impl!r}: expected 'auto' or 'torch'")
+    if block_tables.shape[1] * k_cache.shape[1] <= chunk_kv:
+        return _paged_chunked_attention(
+            q, k_cache, v_cache, block_tables.to(q.device)[seg], True,
+            chunk_kv, q_offset, kv_valid_len, k_scale, v_scale)
+    from repro_torch.kernels import paged_attention as _pk
+    fn = _pk.paged_packed_attention if impl == "auto" \
+        else _pk.paged_packed_attention_plain
+    return fn(q, k_cache, v_cache, block_tables, seg, kv_valid_len,
+              q_offset=q_offset, chunk_kv=chunk_kv, k_scale=k_scale,
+              v_scale=v_scale)

@@ -6,8 +6,10 @@ tests/test_torch_cuda.py``.  Without a card every test skips.
 
 Tolerances: the TiM kernels equal their plain versions bit for bit
 (exact int32 products, the same correctly rounded f32 epilogue); paged
-attention agrees to about one bf16 ulp (per-KV-block online softmax and
-another summation order): |diff| <= 2^-7 * |ref| + 2e-3.
+attention, mixed and packed, agrees to about one bf16 ulp (per-KV-block
+online softmax and another summation order): |diff| <= 2^-7 * |ref| +
+2e-3.  The packed kernel equals the mixed kernel bit for bit, token by
+token (the same compiled kernel, Sq = 1).
 """
 import numpy as np
 import pytest
@@ -108,3 +110,82 @@ def test_paged_kernel_close_to_plain(dev, quant, causal):
     assert torch.isfinite(o).all()
     assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
     assert not o[2].any()
+
+
+def _packed_inputs(dev, quant):
+    """A mixed step of 4 slots (prefill past a block boundary, a fresh
+    prompt, a decode, an idle slot) as the padded grid and as its
+    flattened tokens plus 3 padding tokens."""
+    q, k, v, _, _, _, kw = _attn_inputs(dev, quant)
+    rng = np.random.default_rng(7)
+    offs, n_new = [37, 0, 70, 0], [4, 5, 1, 0]
+    slots, chunk, h, d = 4, 5, q.shape[2], q.shape[3]
+    nb = k.shape[0]
+    tbl = rng.permutation(nb)[:slots * 4].reshape(slots, 4).astype(np.int32)
+    tbl[1, 1:] = -1
+    qpad = torch.from_numpy(rng.standard_normal((slots, chunk, h, d)).astype(
+        np.float32)).bfloat16().to(dev)
+    seg, vlen, qoff, where = [], [], [], []
+    for i, (o, n) in enumerate(zip(offs, n_new)):
+        for j in range(n):
+            seg.append(i)
+            vlen.append(o + j + 1)
+            qoff.append(o + j)
+            where.append((i, j))
+    for _ in range(3):
+        seg.append(-1)
+        vlen.append(0)
+        qoff.append(0)
+        where.append(None)
+    qflat = torch.stack([qpad[w] if w is not None else torch.zeros_like(
+        qpad[0, 0]) for w in where])[:, None].contiguous()
+    i32 = dict(dtype=torch.int32, device=dev)
+    padded = (qpad, k, v, torch.from_numpy(tbl).to(dev),
+              torch.tensor(offs, **i32) + torch.tensor(n_new, **i32),
+              torch.tensor(offs, **i32))
+    flat = (qflat, torch.tensor(seg, **i32), torch.tensor(vlen, **i32),
+            torch.tensor(qoff, **i32))
+    return padded, flat, where, kw
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_packed_kernel_close_to_plain_and_equal_to_mixed(dev, quant):
+    (qpad, k, v, tbl, vlen_s, qoff_s), (qf, seg, vlen, qoff), where, kw = \
+        _packed_inputs(dev, quant)
+    reset_launch_counts()
+    out = pk.paged_packed_attention(qf, k, v, tbl, seg, vlen, q_offset=qoff,
+                                    chunk_kv=32, **kw)
+    assert launch_counts()["paged_packed_attention"] == 1
+    ref = pk.paged_packed_attention_plain(qf, k, v, tbl, seg, vlen,
+                                          q_offset=qoff, chunk_kv=32, **kw)
+    mixed = pk.paged_attention_launch(qpad, k, v, tbl, vlen_s,
+                                      q_offset=qoff_s, **kw)
+    torch.cuda.synchronize()
+    o, r = out.float().cpu(), ref.float().cpu()
+    assert torch.isfinite(o).all()
+    assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
+    for t, w in enumerate(where):
+        if w is None:
+            assert not out[t].any()
+        else:
+            assert torch.equal(out[t, 0], mixed[w]), (t, w)
+
+
+def test_packed_wrapper_counts_and_rejects_bad_input(dev):
+    (_, k, v, tbl, _, _), (qf, seg, vlen, qoff), _, _ = \
+        _packed_inputs(dev, False)
+    reset_launch_counts()
+    pk.paged_packed_attention(qf, k, v, tbl, seg, vlen, q_offset=qoff)
+    assert launch_counts()["paged_packed_attention"] == 1
+    assert launch_counts()["paged_attention"] == 0
+    with pytest.raises(ValueError):            # Sq must be 1
+        pk.paged_packed_attention_launch(qf.expand(-1, 2, -1, -1)
+                                         .contiguous(), k, v, tbl, seg,
+                                         vlen, q_offset=qoff)
+    with pytest.raises(ValueError):            # per-token length mismatch
+        pk.paged_packed_attention_launch(qf, k, v, tbl, seg[:-1], vlen,
+                                         q_offset=qoff)
+    with pytest.raises(ValueError):            # int8 pool without scales
+        pk.paged_packed_attention_launch(qf, k.to(torch.int8), v, tbl, seg,
+                                         vlen, q_offset=qoff)
+    assert launch_counts()["paged_packed_attention"] == 1

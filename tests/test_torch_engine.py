@@ -6,8 +6,9 @@ whose host buffers alias device memory under this jax version.
 
 Plus the engine's own contracts: prefix reuse and copy-on-write fire,
 pool/table invariants hold after every step, what a step reads never
-aliases the scheduler's host arrays, and features outside the slice
-raise NotImplementedError.
+aliases the scheduler's host arrays, features outside the ported
+engine raise NotImplementedError, and a pool below the hard floor
+raises ValueError.
 """
 import numpy as np
 import pytest
@@ -218,10 +219,12 @@ def test_outside_the_slice_raises():
     pol, kv = POLICIES["int4_packed"]
     _, _, cfg, tp = build("granite-34b", pol, kv)
     kw = dict(batch_slots=2, max_len=MAX_LEN, device="cpu")
-    for bad in (dict(packed=True), dict(spec_k=2), dict(greedy=False),
-                dict(num_blocks=4)):
+    for bad in (dict(spec_k=2), dict(greedy=False)):
         with pytest.raises(NotImplementedError):
             ServeEngine(tp, cfg, **kw, **bad)
+    # below the hard floor ceil(64 / 16) + 1 = 5 blocks
+    with pytest.raises(ValueError):
+        ServeEngine(tp, cfg, **kw, num_blocks=4)
     eng = ServeEngine(tp, cfg, **kw)
     p = np.arange(5, dtype=np.int32)
     with pytest.raises(NotImplementedError):
