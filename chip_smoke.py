@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one CUDA card::
 
-    python3 chip_smoke.py            # build, kernel phases, engine runs
+    python3 chip_smoke.py   # build, kernel phases, sharded and flash
+                            # attention, engine runs
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -19,22 +20,46 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens), timed with CUDA events beside the plain version, the work's
    bound on the card and, where one PyTorch call computes the same
    function, that call;
-4. engine runs: chatglm3-6b at full width (random weights from
+4. sharded attention (``repro_torch.distrib.decode_attn``, the
+   compacted-partials kernel) over a bf16 pool of 262,144 blocks of 16
+   (chatglm3-6b attention: H=32, Hk=2, D=128) cut into n = 4 contiguous
+   block ranges, the table a seeded permutation of the pool: decode at
+   the repo's decode_32k shape (128 slots, 2048 table entries, cache
+   lengths seeded in 1..32768, ``q_offset=None``), the engine's mixed
+   step (8 slots x 16 tokens, causal, 2048 entries) and that step's
+   tokens packed.  Each runs (a) through a real ``nccl`` process group
+   of world size 1 (``file://`` store under ``build/``), the function a
+   user calls, with every launch counter set to 0 just before and read
+   just after, and (b) as n = 4 shards on one card, each shard's
+   partials from the kernel, merged by the shared ``_lse_merge`` with a
+   stacked reduce; both are held against the unsharded paged-attention
+   kernel and the plain route (|diff| <= 2^-7 |ref| + 2e-3), and one
+   shard's partials against their plain version (f32: |dm| <= 1e-5
+   |m| + 1e-5, |dl|, |do| <= 1e-4 l).  Whether (a), whose compaction is
+   the identity table, equals the unsharded kernel bit for bit is
+   reported, not asserted;
+5. flash attention (``repro_torch.kernels.flash_attention``): causal at
+   B=1, Sq=Sk=8192 (chatglm3-6b's ``seq_length``), H=32, Hk=2, D=128,
+   bf16, and bidirectional at Sq=1000, Sk=8000, through the entry point
+   with the counters set to 0 before and read after, each held against
+   the plain scan (bf16 tolerance as attention); the kernel, plain and
+   SDPA (``enable_gqa``, at Sq = Sk) timed;
+6. engine runs: chatglm3-6b at full width (random weights from
    ``--seed``) served through ``ServeEngine`` under four ternary
    policies, each with every launch counter set to 0 before the run and
    read after it; the first step's logits of the kernel route are
    compared with the plain route's (relative L2 <= 0.5, argmax equal
    on >= 3/4 of the slots), and one step is traced with torch.profiler
    (device time by kernel beside the step's wall time);
-5. layout runs under policy D at full depth, on its params and prompts
+7. layout runs under policy D at full depth, on its params and prompts
    with 32 new tokens each (with 16, the 12 requests never hold more
    than 123 blocks, and a pool at the hard floor would not preempt):
    P0 padded on the default pool (the reference: its first 16 tokens
-   per request equal step 4's policy-D run), P1 token-packed on the
+   per request equal step 6's policy-D run), P1 token-packed on the
    default pool, P2 token-packed on a pool at the hard floor
    ceil(2048 / 16) + 1 = 129 blocks swapping, P3 padded on that pool
    recomputing; every request's tokens must equal P0's;
-6. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+8. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of the JAX package.
 """
@@ -108,6 +133,16 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = ops / ops_rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def attn_close(out, ref):
+    """(max |diff|, finite and within 2^-7 |ref| + 2e-3)."""
+    import torch
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    ok = bool(torch.isfinite(o).all()) and \
+        not bool((diff > r.abs() * 2.0 ** -7 + 2e-3).any())
+    return float(diff.max()), ok
 
 
 # ---------------------------------------------------------------------------
@@ -253,11 +288,8 @@ def packed_attn_phase(gen, iters):
         mixed = pk.paged_attention_launch(q, k, v, tbl, vlen, q_offset=qoff,
                                           **kw)
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        tol = ref.float().abs() * 2.0 ** -7 + 2e-3
-        err = float(diff.max())
-        if not bool(torch.isfinite(out.float()).all()) or \
-                bool((diff > tol).any()):
+        err, ok = attn_close(out, ref)
+        if not ok:
             raise AssertionError(f"paged_packed_attention {label}: kernel vs "
                                  f"plain max |diff| {err} exceeds tolerance")
         if not torch.equal(out[:real, 0], mixed[slot, col]):
@@ -325,11 +357,8 @@ def attn_phase(gen, iters):
         ref = pk.paged_attention_plain(*args, q_offset=qoff, chunk_kv=1024,
                                        causal=causal, **kw)
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        tol = ref.float().abs() * 2.0 ** -7 + 2e-3
-        err = float(diff.max())
-        if not bool(torch.isfinite(out.float()).all()) or \
-                bool((diff > tol).any()):
+        err, ok = attn_close(out, ref)
+        if not ok:
             raise AssertionError(f"paged_attention {label}: kernel vs plain "
                                  f"max |diff| {err} exceeds tolerance")
         ms = time_ms(lambda: pk.paged_attention_launch(
@@ -381,6 +410,316 @@ def attn_library_ms(q, k, v, tbl, vlen, qoff, kw, causal, iters):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kg, vg))
     return time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), iters)
+
+
+# ---------------------------------------------------------------------------
+# sharded attention phase
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+POOL_BLOCKS = 262144      # of 16 positions: 2 GiB of bf16 K and 2 of V
+PARTIALS_REPLACES = "src/repro/kernels/paged_attention.py:184"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:82"
+
+
+def sharded_inputs(gen):
+    """One pool for three cases: decode at decode_32k (128 slots, 2048
+    entries, cache lengths in 1..32768, no causal term), the engine's
+    mixed step (8 slots x 16 tokens, 2048 entries) and its tokens
+    packed; every table a slice of one seeded permutation of the pool."""
+    import torch
+    dev = "cuda"
+    h, hk, d, bs, nblk = 32, 2, 128, 16, 2048
+    i32 = dict(device=dev, dtype=torch.int32)
+    k = torch.empty((POOL_BLOCKS, bs, hk, d), device=dev,
+                    dtype=torch.bfloat16).normal_(generator=gen)
+    v = torch.empty_like(k).normal_(generator=gen)
+    perm = torch.randperm(POOL_BLOCKS, generator=gen, device=dev).to(
+        torch.int32)
+    b = 128
+    cases = {"decode": dict(
+        q=torch.randn((b, 1, h, d), generator=gen, device=dev).to(k.dtype),
+        tbl=perm[:b * nblk].reshape(b, nblk),
+        vlen=torch.randint(1, nblk * bs + 1, (b,), generator=gen, **i32),
+        qoff=None)}
+    # per-slot cache_len / n_new: long and short prefixes, decodes, a
+    # just-admitted prompt and an empty slot
+    cl = torch.tensor([32752, 20000, 9000, 16383, 0, 1, 4000, 0], **i32)
+    nn = torch.tensor([16, 1, 16, 1, 16, 16, 1, 0], **i32)
+    qm = torch.randn((8, 16, h, d), generator=gen, device=dev).to(k.dtype)
+    tbl_m = perm[-8 * nblk:].reshape(8, nblk)
+    cases["mixed"] = dict(q=qm, tbl=tbl_m, vlen=cl + nn, qoff=cl)
+    seg, tvl, tqo, slot, col, real = packed_layout(cl + nn, cl)
+    qf = torch.zeros((seg.shape[0], 1, h, d), device=dev, dtype=k.dtype)
+    qf[:real, 0] = qm[slot, col]
+    cases["packed"] = dict(q=qf, tbl=tbl_m, seg=seg, vlen=tvl, qoff=tqo)
+    return k, v, cases
+
+
+def unsharded(case, k, v, plain: bool):
+    """The unsharded paged-attention kernel, or its plain version."""
+    from repro_torch.kernels import paged_attention as pk
+    q, tbl, vlen, qoff = case["q"], case["tbl"], case["vlen"], case["qoff"]
+    if "seg" in case:
+        if plain:
+            return pk.paged_packed_attention_plain(
+                q, k, v, tbl, case["seg"], vlen, q_offset=qoff,
+                chunk_kv=1024)
+        return pk.paged_packed_attention_launch(q, k, v, tbl, case["seg"],
+                                                vlen, q_offset=qoff)
+    if plain:
+        return pk.paged_attention_plain(
+            q, k, v, tbl, vlen, q_offset=0 if qoff is None else qoff,
+            chunk_kv=1024, causal=qoff is not None)
+    return pk.paged_attention_launch(q, k, v, tbl, vlen, q_offset=qoff,
+                                     causal=qoff is not None)
+
+
+def case_table(case):
+    """Each query row's table row (the packed case gathers by segment)."""
+    tbl = case["tbl"]
+    if "seg" in case:
+        return tbl[case["seg"].long().clamp(0, tbl.shape[0] - 1)]
+    return tbl
+
+
+def stacked_shards(case, k, v, n):
+    """(b): n shards on one card, each shard's partials from the kernel,
+    merged by the shared ``_lse_merge`` with a stacked reduce."""
+    import torch
+    from repro_torch.distrib import decode_attn as da
+    nb_loc = k.shape[0] // n
+    parts = [da.paged_shard_partial(
+        case["q"], k[r * nb_loc:(r + 1) * nb_loc],
+        v[r * nb_loc:(r + 1) * nb_loc], case_table(case), case["vlen"], r,
+        case["qoff"]) for r in range(n)]
+    m, l, o = (torch.stack(x) for x in zip(*parts))
+    return da._lse_merge(m, l, o, case["q"].dtype, da.stacked_reduce)
+
+
+def world1(case, k, v):
+    """(a): the function a user calls, under the world-1 process group;
+    returns (output, launch counts of the call)."""
+    import torch
+    from repro_torch.distrib import decode_attn as da
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    if "seg" in case:
+        out = da.sharded_packed_mixed_attention(
+            case["q"], k, v, case["tbl"], case["seg"], case["vlen"],
+            case["qoff"])
+    else:
+        out = da.sharded_paged_mixed_attention(
+            case["q"], k, v, case["tbl"], case["vlen"], case["qoff"])
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def shard0(case, k, v, n):
+    """Shard 0's compacted operands: (args, kwargs) of the partials."""
+    from repro_torch.distrib import decode_attn as da
+    nb_loc = k.shape[0] // n
+    tbl = case_table(case).long()
+    keep, sel, gid = da._compact(tbl, 0, nb_loc, min(tbl.shape[1], nb_loc))
+    return ((case["q"], k[:nb_loc], v[:nb_loc], gid, case["vlen"]),
+            dict(q_offset=case["qoff"], causal=case["qoff"] is not None,
+                 logical_blocks=keep, entry_valid=sel))
+
+
+def partials_errors(got, want):
+    """Max |dm| / (|m| + 1), |dl| / l and |do| / l over the rows, and
+    whether each is within the stated f32 tolerance (1e-5, 1e-4, 1e-4)."""
+    (o, m, l), (ro, rm, rl) = got, want
+    dm = float(((m - rm).abs() / (rm.abs() + 1)).max())
+    scale = rl.clamp(min=1e-30)
+    dl = float(((l - rl).abs() / scale).max())
+    do = float(((o - ro).abs() / scale[..., None]).max())
+    ok = dm <= 1e-5 and dl <= 1e-4 and do <= 1e-4 and \
+        bool(((l == 0) == (rl == 0)).all())
+    return dict(dm=dm, dl_rel=dl, do_rel=do), ok
+
+
+def partials_bound(args, kw):
+    """(bytes, operations) the shard's call needs: its valid K/V blocks
+    once, q, the three tables and (o, m, l) out; 4 D flops per query
+    head and valid position (decode: no causal term)."""
+    q, ks, _, gid, vlen = args
+    b, sq, h, d = q.shape
+    bs, hk = ks.shape[1], ks.shape[2]
+    keep, sel = kw["logical_blocks"], kw["entry_valid"]
+    vl = vlen.long()[:, None]
+    live = sel & (keep * bs < vl)
+    positions = int(((vl - keep * bs).clamp(0, bs) * live).sum())
+    nbytes = (int(live.sum()) * bs * hk * d * 2 * 2 + 2 * q.numel()
+              + 4 * b * h * sq * (d + 2) + 3 * 4 * gid.numel() + 8 * b)
+    return nbytes, 4.0 * d * h * sq * positions
+
+
+def partials_library_ms(args, kw, iters):
+    """scaled_dot_product_attention over the shard's pre-gathered K/V
+    (the gather not timed) with its validity mask.  At Sq = 1 the G query
+    heads of a KV head are folded into the query rows, which is GQA
+    without repeating K/V (enable_gqa with a mask takes the math
+    backend, which would repeat the gathered K/V 16 times, ~34 GB)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.nn.attention import paged_view
+    q, ks, vs, gid, vlen = args
+    b, sq, h, d = q.shape
+    bs, hk = ks.shape[1], ks.shape[2]
+    assert sq == 1
+    keep, sel = kw["logical_blocks"], kw["entry_valid"]
+    kpos = (keep[:, :, None] * bs + torch.arange(bs, device=q.device)
+            ).reshape(b, -1)
+    mask = ((kpos < vlen.long()[:, None])
+            & sel.repeat_interleave(bs, dim=1))[:, None, None, :]
+    kt = paged_view(ks, gid).transpose(1, 2)
+    vt = paged_view(vs, gid).transpose(1, 2)
+    qt = q.reshape(b, hk, h // hk, d)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), iters)
+
+
+def nccl_world1():
+    """A real nccl process group of world size 1 (file:// store under
+    build/); returns the store's path."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    store = os.path.join(HERE, "build", f"nccl_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    return store
+
+
+def sharded_phase(gen, iters):
+    """Returns the paged_attention_partials row (launches: the world-1
+    runs of the three cases)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import paged_attention as pk
+    k, v, cases = sharded_inputs(gen)
+    store = nccl_world1()
+    launches, errs, row = 0, [], None
+    for name, case in cases.items():
+        ref_k = unsharded(case, k, v, plain=False)
+        ref_p = unsharded(case, k, v, plain=True)
+        out_b = stacked_shards(case, k, v, SHARDS)
+        out_a, counts = world1(case, k, v)
+        launches += counts["paged_attention_partials"]
+        if counts["paged_attention_partials"] <= 0:
+            raise AssertionError(f"sharded {name}: the partials kernel "
+                                 f"never launched in the world-1 run")
+        bit = bool(torch.equal(out_a, ref_k))
+        res = {}
+        for label, out in (("world1", out_a), (f"n{SHARDS}", out_b)):
+            for rname, ref in (("kernel", ref_k), ("plain", ref_p)):
+                err, ok = attn_close(out, ref)
+                res[f"{label}_vs_{rname}"] = err
+                if not ok:
+                    raise AssertionError(
+                        f"sharded {name} {label}: max |diff| {err} against "
+                        f"the unsharded {rname} exceeds 2^-7 |ref| + 2e-3")
+                if rname == "plain":
+                    errs.append(err)
+        args, kw = shard0(case, k, v, SHARDS)
+        got = pk.paged_attention_partials_launch(*args, **kw)
+        want = pk.paged_attention_partials_plain(*args, **kw)
+        torch.cuda.synchronize()
+        perr, ok = partials_errors(got, want)
+        if not ok:
+            raise AssertionError(f"sharded {name}: shard 0's partials "
+                                 f"differ from their plain version: {perr}")
+        ms = time_ms(lambda: pk.paged_attention_partials_launch(*args, **kw),
+                     iters)
+        unsharded_ms = time_ms(lambda: unsharded(case, k, v, False), iters)
+        log(f"[sharded {name}] B={case['q'].shape[0]} Sq="
+            f"{case['q'].shape[1]} nblk={case['tbl'].shape[1]} pool="
+            f"{k.shape[0]} shards={SHARDS} world1_bit_equal_to_kernel={bit} "
+            f"errors={res} shard0_partials={perr} shard0_ms={ms:.4f} "
+            f"unsharded_kernel_ms={unsharded_ms:.4f} launches={counts}")
+        if name == "decode":
+            plain_ms = time_ms(lambda: pk.paged_attention_partials_plain(
+                *args, **kw), max(2, iters // 4))
+            lib_ms = partials_library_ms(args, kw, iters)
+            nbytes, ops = partials_bound(args, kw)
+            b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S)
+            log(f"[kernel paged_attention_partials decode_32k shard 0] "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={b_ms:.5f} ({b_by}) bytes={nbytes} ops={ops:.4g}")
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+        del ref_k, ref_p, out_a, out_b, got, want, args, kw
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if os.path.exists(store):      # the store may remove its own file
+        os.remove(store)
+    del k, v, cases
+    torch.cuda.empty_cache()
+    row.update(launches=launches, max_abs_err=max(errs))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# flash attention phase
+# ---------------------------------------------------------------------------
+
+def flash_phase(gen, iters):
+    """Returns the flash_attention row (launches: the entry point's calls;
+    times at the causal 8192 case)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    h, hk, d = 32, 2, 128
+    launches, errs, row = 0, [], None
+    for label, sq, sk, causal in [("causal", 8192, 8192, True),
+                                  ("bidirectional", 1000, 8000, False)]:
+        q = torch.randn((1, sq, h, d), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((1, sk, hk, d), generator=gen, device="cuda"
+                            ).to(torch.bfloat16) for _ in range(2))
+        reset_launch_counts()
+        out = fk.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        n = launch_counts()["flash_attention"]
+        if n <= 0:
+            raise AssertionError(f"flash {label}: the kernel never launched")
+        launches += n
+        ref = fk.flash_attention_plain(q, k, v, causal=causal)
+        err, ok = attn_close(out, ref)
+        if not ok:
+            raise AssertionError(f"flash {label}: kernel vs plain max |diff| "
+                                 f"{err} exceeds 2^-7 |ref| + 2e-3")
+        errs.append(err)
+        ms = time_ms(lambda: fk.flash_attention_launch(q, k, v,
+                                                       causal=causal), iters)
+        plain_ms = time_ms(lambda: fk.flash_attention_plain(
+            q, k, v, causal=causal), max(2, iters // 4))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # SDPA's is_causal is top-left aligned too: the same function at
+        # Sq = Sk
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
+        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())   # q, out; k, v
+        b_ms, b_by = bound(nbytes, 4.0 * d * h * pairs, BF16_FLOPS_PER_S)
+        log(f"[kernel flash_attention {label}] B=1 Sq={sq} Sk={sk} H={h} "
+            f"Hk={hk} D={d} bf16 max_abs_err={err} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+        if causal:
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, qt, kt, vt, out, ref
+        torch.cuda.empty_cache()
+    row.update(launches=launches, max_abs_err=max(errs))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +1024,10 @@ def main(argv=None) -> int:
                 for n, s in TIM_KERNELS.items()}
     attn_rows = attn_phase(gen, args.iters)
     packed_rows = packed_attn_phase(gen, args.iters)
+    t1 = time.perf_counter()
+    partials_row = sharded_phase(gen, args.iters)
+    flash_row = flash_phase(gen, args.iters)
+    log(f"[phases sharded + flash] {time.perf_counter() - t1:.1f}s")
 
     launches = {n: 0 for n in list(TIM_KERNELS) + ["paged_attention"]}
     kept = None
@@ -725,6 +1068,17 @@ def main(argv=None) -> int:
         max_abs_err=max(x["max_abs_err"] for x in packed_rows), ms=p["ms"],
         plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
         bound_by=p["bound_by"], library_ms=p["library_ms"]))
+    for name, src, rep, r in (
+            ("paged_attention_partials",
+             "src/repro_torch/csrc/paged_attention.cu", PARTIALS_REPLACES,
+             partials_row),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             FLASH_REPLACES, flash_row)):
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=r["launches"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     never = [k["name"] for k in kernels if k["launches"] <= 0]
     if never:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -1,12 +1,15 @@
 // Paged GQA attention for Hopper (sm_90a): the block-table gather runs
 // inside the kernel.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/paged_attention.py
+// Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py
 // that share _paged_attn_kernel:
 //  * paged_attention_pallas for normalize=True with an uncompacted
 //    table, causal or not, bf16 or int8 KV (paged_attention_launch);
 //  * paged_packed_attention_pallas, the token-packed layout's T
-//    single-token queries (paged_packed_attention_launch).
+//    single-token queries (paged_packed_attention_launch);
+//  * paged_attention_pallas for normalize=False with logical_blocks /
+//    entry_valid, the compacted partials of the block-sharded path
+//    (paged_attention_partials_launch).
 //
 // Function: q (B, Sq, H, D) bf16; K/V pools (nb, bs, Hk, D) bf16, or
 // int8 codes with (nb, bs, Hk) bf16 scales; tables (B, nblk) int32;
@@ -42,9 +45,25 @@
 // Tokens of one slot each re-read that slot's K/V (from L2 after the
 // first), a cost the padded grid's shared 16-row tile does not pay.
 //
+// Un-normalized partials over a compacted table (PARTIAL): the branch of
+// _paged_attn_kernel with compacted=True, normalize=False, which
+// distrib/decode_attn.sharded_paged_mixed_attention feeds its
+// cross-shard log-sum-exp merge (paged_attention_partials_launch).
+// Table entry e of a row covers logical block logical_blocks[row, e]
+// (positions lblk*bs + j) and counts only where entry_valid[row, e] > 0;
+// the kernel writes the running acc (B, Hk, G, Sq, D), the raw running
+// max m (-1e30 where nothing is valid) and l (B, Hk, G, Sq), all f32,
+// where the normalized route writes bf16(acc / l).  The walk visits all
+// nblk entries and skips, without staging it, an entry that is invalid
+// or starts at or past kv_valid_len: such an entry is an exact no-op of
+// the update (p = 0, corr = 1, or l = acc = 0 while nothing is valid),
+// so a shard's work follows its own valid blocks, 1/n of the cache.
+// bf16 KV only (the sharded path passes no scales).
+//
 // Bound: memory (each slot's valid K/V bytes are read once per 16-row
-// tile, from L2 after the first); this first kernel is limited by its
-// warp-shuffle dot products instead.
+// tile, from L2 after the first; for the partials, each shard's valid
+// blocks once); this first kernel is limited by its warp-shuffle dot
+// products instead.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -69,7 +88,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int DPL, bool QUANT, bool CAUSAL>
+template <int DPL, bool QUANT, bool CAUSAL, bool PARTIAL>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const void* __restrict__ k_pool,
@@ -80,7 +99,11 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ seg,
                   const int* __restrict__ vlen_arr,
                   const int* __restrict__ qoff_arr,
-                  __nv_bfloat16* __restrict__ out, int Sq, int H, int Hk,
+                  const int* __restrict__ lblocks,
+                  const int* __restrict__ entry_valid,
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ o_acc, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int Sq, int H, int Hk,
                   int D, int nb, int bs, int nslots, int nblk,
                   float qscale) {
   extern __shared__ float smem[];
@@ -119,8 +142,16 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  const int nblocks = min(nblk, (vl + bs - 1) / bs);
+  const int nblocks = PARTIAL ? nblk : min(nblk, (vl + bs - 1) / bs);
   for (int e = 0; e < nblocks; ++e) {
+    int lb = e;  // the logical block of entry e
+    if constexpr (PARTIAL) {
+      lb = lblocks[(size_t)row * nblk + e];
+      // block-uniform: an exact no-op entry is skipped, not staged
+      if (entry_valid[(size_t)row * nblk + e] <= 0 ||
+          lb >= (vl + bs - 1) / bs)
+        continue;
+    }
     const int pb = min(max(tables[(size_t)row * nblk + e], 0), nb - 1);
     __syncthreads();
     for (int idx = threadIdx.x; idx < bs * D; idx += WARPS * 32) {
@@ -159,7 +190,7 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
           if (d < D) part = fmaf(qr[i][c], ks[j * D + d], part);
         }
         const float s = warp_sum(part);
-        const int kpos = e * bs + j;
+        const int kpos = lb * bs + j;
         const bool ok = kpos < vl && (!CAUSAL || qpos[i] >= kpos);
         if (lane == j) my_s = ok ? s : NEG_INF;
       }
@@ -186,6 +217,20 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     if (!live[i]) continue;
     const int r = blockIdx.x * ROWS + warp * ROWS_PER_WARP + i;
+    if constexpr (PARTIAL) {
+      // (B, Hk, G, Sq) rows: r = g * Sq + qi within KV head hk
+      const size_t o_row = ((size_t)b * Hk + hk) * gsq + r;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) o_acc[o_row * D + d] = acc[i][c];
+      }
+      if (lane == 0) {
+        m_out[o_row] = m[i];
+        l_out[o_row] = l[i];
+      }
+      continue;
+    }
     const int g = r / Sq, qi = r % Sq, h = hk * G + g;
     const float inv = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -198,81 +243,82 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, bool QUANT>
-void launch_causal(bool causal, dim3 grid, size_t smem, cudaStream_t st,
-                   const __nv_bfloat16* q, const void* k, const void* v,
-                   const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                   const int* tbl, const int* seg, const int* vlen,
-                   const int* qoff, __nv_bfloat16* out, int Sq, int H,
-                   int Hk, int D, int nb, int bs, int nslots, int nblk,
-                   float qscale) {
-  if (causal)
-    paged_attn_kernel<DPL, QUANT, true><<<grid, WARPS * 32, smem, st>>>(
-        q, k, v, ks, vs, tbl, seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
-        nslots, nblk, qscale);
-  else
-    paged_attn_kernel<DPL, QUANT, false><<<grid, WARPS * 32, smem, st>>>(
-        q, k, v, ks, vs, tbl, seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
-        nslots, nblk, qscale);
+// Every operand of one launch, so that the instantiation is chosen in
+// one place.
+struct Launch {
+  dim3 grid;
+  size_t smem;
+  cudaStream_t st;
+  const __nv_bfloat16 *q, *ks, *vs;
+  const void *k, *v;
+  const int *tbl, *seg, *vlen, *qoff, *lblk, *sel;
+  __nv_bfloat16* out;
+  float *o_acc, *m_out, *l_out;
+  int Sq, H, Hk, D, nb, bs, nslots, nblk;
+  float qscale;
+};
+
+template <int DPL, bool QUANT, bool CAUSAL, bool PARTIAL>
+void go(const Launch& a) {
+  paged_attn_kernel<DPL, QUANT, CAUSAL, PARTIAL>
+      <<<a.grid, WARPS * 32, a.smem, a.st>>>(
+          a.q, a.k, a.v, a.ks, a.vs, a.tbl, a.seg, a.vlen, a.qoff, a.lblk,
+          a.sel, a.out, a.o_acc, a.m_out, a.l_out, a.Sq, a.H, a.Hk, a.D,
+          a.nb, a.bs, a.nslots, a.nblk, a.qscale);
 }
 
+// the partials are instantiated for bf16 KV only
 template <int DPL>
-void launch_quant(bool quant, bool causal, dim3 grid, size_t smem,
-                  cudaStream_t st, const __nv_bfloat16* q, const void* k,
-                  const void* v, const __nv_bfloat16* ks,
-                  const __nv_bfloat16* vs, const int* tbl, const int* seg,
-                  const int* vlen, const int* qoff, __nv_bfloat16* out,
-                  int Sq, int H, int Hk, int D, int nb, int bs, int nslots,
-                  int nblk, float qscale) {
-  if (quant)
-    launch_causal<DPL, true>(causal, grid, smem, st, q, k, v, ks, vs, tbl,
-                             seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
-                             nslots, nblk, qscale);
+void go_dpl(const Launch& a, bool quant, bool causal, bool partial) {
+  if (partial)
+    causal ? go<DPL, false, true, true>(a) : go<DPL, false, false, true>(a);
+  else if (quant)
+    causal ? go<DPL, true, true, false>(a) : go<DPL, true, false, false>(a);
   else
-    launch_causal<DPL, false>(causal, grid, smem, st, q, k, v, ks, vs, tbl,
-                              seg, vlen, qoff, out, Sq, H, Hk, D, nb, bs,
-                              nslots, nblk, qscale);
+    causal ? go<DPL, false, true, false>(a) : go<DPL, false, false, false>(a);
 }
 
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* k_scale, const void* v_scale, const void* tables,
-           const void* seg, const void* vlen, const void* qoff, void* out,
-           int B, int Sq, int H, int Hk, int D, int nb, int bs, int nslots,
-           int nblk, int causal, int quant, float qscale, void* stream) {
-  if (D < 1 || D > 256 || bs < 1 || bs > 32 || Hk < 1 || H % Hk != 0 ||
-      nslots < 1)
+int launch(Launch a, int B, int causal, int quant, int partial) {
+  if (a.D < 1 || a.D > 256 || a.bs < 1 || a.bs > 32 || a.Hk < 1 ||
+      a.H % a.Hk != 0 || a.nslots < 1 || (partial && quant))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int gsq = (H / Hk) * Sq;
-  dim3 grid((gsq + ROWS - 1) / ROWS, Hk, B);
-  const size_t smem = 2 * sizeof(float) * bs * D;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* qb = static_cast<const __nv_bfloat16*>(q);
-  auto* ks = static_cast<const __nv_bfloat16*>(k_scale);
-  auto* vs = static_cast<const __nv_bfloat16*>(v_scale);
-  auto* tb = static_cast<const int*>(tables);
-  auto* sg = static_cast<const int*>(seg);
-  auto* vl = static_cast<const int*>(vlen);
-  auto* qo = static_cast<const int*>(qoff);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  const int dpl = (D + 31) / 32;
+  const int gsq = (a.H / a.Hk) * a.Sq;
+  a.grid = dim3((gsq + ROWS - 1) / ROWS, a.Hk, B);
+  a.smem = 2 * sizeof(float) * a.bs * a.D;
+  if (a.smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int dpl = (a.D + 31) / 32;
   if (dpl <= 1)
-    launch_quant<1>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
-                    nblk, qscale);
+    go_dpl<1>(a, quant, causal, partial);
   else if (dpl <= 2)
-    launch_quant<2>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
-                    nblk, qscale);
+    go_dpl<2>(a, quant, causal, partial);
   else if (dpl <= 4)
-    launch_quant<4>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
-                    nblk, qscale);
+    go_dpl<4>(a, quant, causal, partial);
   else
-    launch_quant<8>(quant, causal, grid, smem, st, qb, k_pool, v_pool, ks,
-                    vs, tb, sg, vl, qo, ob, Sq, H, Hk, D, nb, bs, nslots,
-                    nblk, qscale);
+    go_dpl<8>(a, quant, causal, partial);
   return static_cast<int>(cudaGetLastError());
+}
+
+Launch operands(const void* q, const void* k_pool, const void* v_pool,
+                const void* tables, const void* vlen, const void* qoff,
+                int Sq, int H, int Hk, int D, int nb, int bs, int nblk,
+                float qscale, void* stream) {
+  Launch a{};
+  a.st = static_cast<cudaStream_t>(stream);
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = k_pool;
+  a.v = v_pool;
+  a.tbl = static_cast<const int*>(tables);
+  a.vlen = static_cast<const int*>(vlen);
+  a.qoff = static_cast<const int*>(qoff);
+  a.Sq = Sq;
+  a.H = H;
+  a.Hk = Hk;
+  a.D = D;
+  a.nb = nb;
+  a.bs = bs;
+  a.nblk = nblk;
+  a.qscale = qscale;
+  return a;
 }
 
 }  // namespace
@@ -287,9 +333,13 @@ extern "C" int paged_attention_launch(
     const void* vlen, const void* qoff, void* out, int B, int Sq, int H,
     int Hk, int D, int nb, int bs, int nblk, int causal, int quant,
     float qscale, void* stream) {
-  return launch(q, k_pool, v_pool, k_scale, v_scale, tables, nullptr, vlen,
-                qoff, out, B, Sq, H, Hk, D, nb, bs, B, nblk, causal, quant,
-                qscale, stream);
+  Launch a = operands(q, k_pool, v_pool, tables, vlen, qoff, Sq, H, Hk, D,
+                      nb, bs, nblk, qscale, stream);
+  a.ks = static_cast<const __nv_bfloat16*>(k_scale);
+  a.vs = static_cast<const __nv_bfloat16*>(v_scale);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.nslots = B;
+  return launch(a, B, causal, quant, 0);
 }
 
 // Token-packed: q (T, 1, H, D); tables (nslots, nblk) per slot; seg,
@@ -301,7 +351,34 @@ extern "C" int paged_packed_attention_launch(
     int H, int Hk, int D, int nb, int bs, int nslots, int nblk, int quant,
     float qscale, void* stream) {
   if (seg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k_pool, v_pool, k_scale, v_scale, tables, seg, vlen,
-                qoff, out, T, 1, H, Hk, D, nb, bs, nslots, nblk, 1, quant,
-                qscale, stream);
+  Launch a = operands(q, k_pool, v_pool, tables, vlen, qoff, 1, H, Hk, D,
+                      nb, bs, nblk, qscale, stream);
+  a.ks = static_cast<const __nv_bfloat16*>(k_scale);
+  a.vs = static_cast<const __nv_bfloat16*>(v_scale);
+  a.seg = static_cast<const int*>(seg);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.nslots = nslots;
+  return launch(a, T, 1, quant, 0);
+}
+
+// Partials over a compacted table: tables, logical_blocks, entry_valid
+// (B, nblk) int32; bf16 pools; o_acc (B, Hk, G, Sq, D), m_out and l_out
+// (B, Hk, G, Sq) f32.
+extern "C" int paged_attention_partials_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* tables, const void* logical_blocks, const void* entry_valid,
+    const void* vlen, const void* qoff, void* o_acc, void* m_out,
+    void* l_out, int B, int Sq, int H, int Hk, int D, int nb, int bs,
+    int nblk, int causal, float qscale, void* stream) {
+  if (logical_blocks == nullptr || entry_valid == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch a = operands(q, k_pool, v_pool, tables, vlen, qoff, Sq, H, Hk, D,
+                      nb, bs, nblk, qscale, stream);
+  a.lblk = static_cast<const int*>(logical_blocks);
+  a.sel = static_cast<const int*>(entry_valid);
+  a.o_acc = static_cast<float*>(o_acc);
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
+  a.nslots = B;
+  return launch(a, B, causal, 0, 1);
 }

@@ -1,4 +1,4 @@
-"""Kernel dispatch: TiM matmuls and paged attention.
+"""Kernel dispatch: TiM matmuls, paged attention and flash attention.
 
 Each CUDA kernel (``csrc/*.cu``) has a wrapper that counts its launches;
 ``launch_counts`` reads every counter and ``reset_launch_counts`` sets
@@ -10,8 +10,10 @@ from typing import Dict
 
 
 def _tables():
-    from repro_torch.kernels import paged_attention, tim_matmul
-    return (tim_matmul.LAUNCHES, paged_attention.LAUNCHES)
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     tim_matmul)
+    return (tim_matmul.LAUNCHES, paged_attention.LAUNCHES,
+            flash_attention.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

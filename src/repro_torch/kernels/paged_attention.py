@@ -11,6 +11,12 @@ reading its segment's row of the per-slot table inside the kernel;
 per-token table rows ``block_tables[seg]``, as the reference's XLA
 oracle does.  The packed kernel's output for a token equals the mixed
 kernel's output for that token bit for bit (the same compiled kernel).
+``paged_attention_partials`` is the block-sharded path's route (the
+port of ``paged_attention_pallas(normalize=False, logical_blocks=,
+entry_valid=)``): un-normalized flash partials ``(o, m, l)`` over a
+shard's compacted table; ``paged_attention_partials_plain`` is the
+reference's XLA route for it (``distrib/decode_attn._local_partial`` on
+the gathered blocks at their logical positions).
 
 Tolerance kernel vs plain: the kernel takes the online softmax per KV
 block (block_size positions) and sums dot products in another order,
@@ -28,7 +34,8 @@ from repro_torch.kernels import _build
 from repro_torch.nn.attention import (
     _group_queries, _online_softmax_scan, _query_positions, kv_dequantize)
 
-LAUNCHES = {"paged_attention": 0, "paged_packed_attention": 0}
+LAUNCHES = {"paged_attention": 0, "paged_packed_attention": 0,
+            "paged_attention_partials": 0}
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_tables, kv_valid_len, *, q_offset,
@@ -76,6 +83,9 @@ _ARGTYPES = {
     "paged_packed_attention_launch": ([ctypes.c_void_p] * 10
                                       + [ctypes.c_int] * 9
                                       + [ctypes.c_float, ctypes.c_void_p]),
+    "paged_attention_partials_launch": ([ctypes.c_void_p] * 11
+                                        + [ctypes.c_int] * 9
+                                        + [ctypes.c_float, ctypes.c_void_p]),
 }
 
 
@@ -232,3 +242,88 @@ def paged_packed_attention(q, k_pool, v_pool, block_tables, seg_ids,
         q, k_pool, v_pool, block_tables, seg_ids, kv_valid_len,
         q_offset=q_offset, chunk_kv=chunk_kv, k_scale=k_scale,
         v_scale=v_scale)
+
+
+def paged_attention_partials_plain(q, k_pool, v_pool, block_tables,
+                                   kv_valid_len, *, q_offset=None,
+                                   causal: bool, logical_blocks,
+                                   entry_valid):
+    """Plain version: the reference's XLA route of the block-sharded
+    path — gather ``k_pool[block_tables]``, place entry e at logical
+    positions ``logical_blocks[:, e] * bs + j``, AND ``entry_valid`` into
+    the validity mask and take ``_local_partial`` over the whole shard.
+    Returns (o (B,Hk,G,Sq,D), m, l (B,Hk,G,Sq)) f32: ``m`` the raw max
+    (-1e30 where nothing is valid), ``l`` and ``o`` under max(m, -1e29).
+    """
+    from repro_torch.distrib.decode_attn import _local_partial
+    b, sq, h, d = q.shape
+    nb, bs, hk = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    dev = q.device
+    tbl = block_tables.to(dev).long()
+    nblk = tbl.shape[1]
+    ids = tbl.clamp(0, nb - 1)
+    kg = k_pool[ids].reshape(b, nblk * bs, hk, d)
+    vg = v_pool[ids].reshape(b, nblk * bs, hk, d)
+    kpos = (logical_blocks.to(dev).long()[:, :, None] * bs
+            + torch.arange(bs, device=dev)).reshape(b, nblk * bs)
+    ev = (entry_valid.to(dev) > 0).repeat_interleave(bs, dim=1)
+    m, l, o = _local_partial(
+        q, kg, vg, 0, kv_valid_len.to(dev),
+        torch.as_tensor(q_offset, device=dev).expand(b) if causal else None,
+        kpos=kpos, extra_valid=ev)
+    return o, m, l
+
+
+def paged_attention_partials_launch(q, k_pool, v_pool, block_tables,
+                                    kv_valid_len, *, q_offset=None,
+                                    causal: bool, logical_blocks,
+                                    entry_valid):
+    """Launch the compacted-partials CUDA kernel (CUDA tensors only)."""
+    b, sq, h, d = q.shape
+    _, hk, d, nb, bs = _check_launch(q, k_pool, v_pool, None, None)
+    dev = q.device
+    ints = [torch.as_tensor(a, device=dev).to(torch.int32).contiguous()
+            for a in (block_tables, logical_blocks, entry_valid)]
+    for name, a in zip(("block_tables", "logical_blocks", "entry_valid"),
+                       ints):
+        if a.ndim != 2 or a.shape[0] != b or a.shape != ints[0].shape:
+            raise ValueError(f"{name}: expected ({b}, nblk) like "
+                             f"block_tables, got {tuple(a.shape)}")
+    tbl, lblk, sel = ints
+    vlen = _per_slot(kv_valid_len, b, dev)
+    qoff = _per_slot(q_offset, b, dev)
+    g = h // hk
+    o = torch.empty((b, hk, g, sq, d), device=dev, dtype=torch.float32)
+    m = torch.empty((b, hk, g, sq), device=dev, dtype=torch.float32)
+    l = torch.empty_like(m)
+    err = _lib("paged_attention_partials_launch")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
+        lblk.data_ptr(), sel.data_ptr(), vlen.data_ptr(), qoff.data_ptr(),
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), b, sq, h, hk, d, nb, bs,
+        tbl.shape[1], int(causal), _qscale(d),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "paged_attention_partials")
+    return o, m, l
+
+
+def paged_attention_partials(q, k_pool, v_pool, block_tables, kv_valid_len,
+                             *, q_offset=None, causal: bool, logical_blocks,
+                             entry_valid):
+    """Un-normalized flash partials over a compacted table: entry e of
+    row b covers logical block ``logical_blocks[b, e]`` of the physical
+    block ``block_tables[b, e]`` (clamped) and counts only where
+    ``entry_valid[b, e] > 0``.  q (B, Sq, H, D); bf16 pools (nb, bs, Hk,
+    D); ``kv_valid_len`` and ``q_offset`` (B,) (``q_offset`` only read
+    when ``causal``).  Returns (o, m, l) as
+    ``paged_attention_partials_plain``.  CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
+    if q.is_cuda:
+        LAUNCHES["paged_attention_partials"] += 1
+        return paged_attention_partials_launch(
+            q, k_pool, v_pool, block_tables, kv_valid_len,
+            q_offset=q_offset, causal=causal,
+            logical_blocks=logical_blocks, entry_valid=entry_valid)
+    return paged_attention_partials_plain(
+        q, k_pool, v_pool, block_tables, kv_valid_len, q_offset=q_offset,
+        causal=causal, logical_blocks=logical_blocks,
+        entry_valid=entry_valid)

@@ -14,6 +14,9 @@ scan for CPU tensors; ``'torch'`` always runs the plain scan.  Caches
 that fit one chunk use ``full_attention`` on the gathered view on every
 route, as the reference does.
 
+``decode_attention`` is one-token decode against a contiguous cache,
+the unsharded oracle of ``distrib/decode_attn``.
+
 Token-packed layout (``packed_mixed_attention``): T single-token
 queries, each with its segment (slot) id, validity length and offset;
 paged caches keep the per-slot block table, which the packed kernel
@@ -178,6 +181,14 @@ def _paged_chunked_attention(q, k_pool, v_pool, block_tables, causal,
     return fn(q, k_pool, v_pool, block_tables, kv_valid_len,
               q_offset=q_offset, chunk_kv=chunk_kv, k_scale=k_scale,
               v_scale=v_scale, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """One-token decode against a (B, S_max, Hk, D) cache; ``cache_len``
+    (B,) valid lengths (the new token's K/V already written at
+    ``cache_len - 1``), so validity alone is the mask."""
+    return full_attention(q, k_cache, v_cache, causal=False,
+                          kv_valid_len=cache_len)
 
 
 def mixed_attention(q, k_cache, v_cache, kv_valid_len, q_offset,

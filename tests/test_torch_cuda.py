@@ -9,7 +9,13 @@ Tolerances: the TiM kernels equal their plain versions bit for bit
 attention, mixed and packed, agrees to about one bf16 ulp (per-KV-block
 online softmax and another summation order): |diff| <= 2^-7 * |ref| +
 2e-3.  The packed kernel equals the mixed kernel bit for bit, token by
-token (the same compiled kernel, Sq = 1).
+token (the same compiled kernel, Sq = 1).  The compacted partials
+(o, m, l), f32, agree with their plain version to f32 rounding of the
+scores: |dm| <= 1e-5 * |m| + 1e-5, |dl| and |do| <= 1e-4 * l (each p
+term to ~1e-6, summed over at most l's worth of probability mass);
+merged over shards they agree with the unsharded kernel within the
+attention tolerance.  Flash attention: bf16 as paged attention, f32 to
+2e-5 (relative and absolute).
 """
 import numpy as np
 import pytest
@@ -17,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.packing import pack2b  # noqa: E402
+from repro_torch.distrib import decode_attn as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402,E501
 from repro_torch.kernels import paged_attention as pk  # noqa: E402
 from repro_torch.kernels import tim_matmul as tk  # noqa: E402
@@ -189,3 +197,140 @@ def test_packed_wrapper_counts_and_rejects_bad_input(dev):
         pk.paged_packed_attention_launch(qf, k.to(torch.int8), v, tbl, seg,
                                          vlen, q_offset=qoff)
     assert launch_counts()["paged_packed_attention"] == 1
+
+
+def _shard_inputs(dev):
+    """A mixed step of 3 slots over a pool cut into 4 shards: a long
+    cache, one with unassigned entries, one with nothing valid."""
+    rng = np.random.default_rng(11)
+    b, sq, h, hk, d, bs, nblk, nb = 3, 4, 8, 2, 128, 16, 8, 32
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).bfloat16().to(dev)
+    tbl = rng.permutation(nb)[:b * nblk].reshape(b, nblk).astype(np.int32)
+    tbl[1, 6:] = -1
+    vlen = np.array([120, 90, 0], np.int32)
+    i32 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (f(b, sq, h, d), f(nb, bs, hk, d), f(nb, bs, hk, d), i32(tbl),
+            i32(vlen), i32(np.maximum(vlen - sq, 0)))
+
+
+def _partials_close(got, want):
+    (o, m, l), (ro, rm, rl) = [[t.float().cpu() for t in x]
+                               for x in (got, want)]
+    assert torch.isfinite(o).all() and torch.isfinite(l).all()
+    assert ((m - rm).abs() <= rm.abs() * 1e-5 + 1e-5).all()
+    assert ((l - rl).abs() <= rl * 1e-4).all()
+    assert ((o - ro).abs() <= rl[..., None] * 1e-4).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_partials_kernel_close_to_plain(dev, causal):
+    q, k, v, tbl, vlen, qoff = _shard_inputs(dev)
+    n, nb_loc = 4, k.shape[0] // 4
+    reset_launch_counts()
+    for shard in range(n):
+        keep, sel, gid = da._compact(tbl.long(), shard * nb_loc, nb_loc,
+                                     min(tbl.shape[1], nb_loc))
+        ks, vs = k[shard * nb_loc:(shard + 1) * nb_loc], \
+            v[shard * nb_loc:(shard + 1) * nb_loc]
+        kw = dict(q_offset=qoff if causal else None, causal=causal,
+                  logical_blocks=keep, entry_valid=sel)
+        got = pk.paged_attention_partials(q, ks, vs, gid, vlen, **kw)
+        want = pk.paged_attention_partials_plain(q, ks, vs, gid, vlen, **kw)
+        torch.cuda.synchronize()
+        _partials_close(got, want)
+        assert (got[1][2] == np.float32(-1e30)).all() and not got[2][2].any()
+    assert launch_counts()["paged_attention_partials"] == n
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_stacked_shard_merge_close_to_unsharded_kernel(dev, causal):
+    q, k, v, tbl, vlen, qoff = _shard_inputs(dev)
+    n, nb_loc = 4, k.shape[0] // 4
+    qo = qoff if causal else None
+    parts = [da.paged_shard_partial(
+        q, k[r * nb_loc:(r + 1) * nb_loc], v[r * nb_loc:(r + 1) * nb_loc],
+        tbl, vlen, r, qo) for r in range(n)]
+    m, l, o = (torch.stack(x) for x in zip(*parts))
+    got = da._lse_merge(m, l, o, q.dtype, da.stacked_reduce)
+    want = pk.paged_attention_launch(q, k, v, tbl, vlen, q_offset=qoff,
+                                     causal=causal)
+    torch.cuda.synchronize()
+    g, r = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all() and not g[2].any()
+    assert ((g - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
+
+
+def test_identity_table_partials_normalize_close_to_paged_kernel(dev):
+    q, k, v, tbl, vlen, qoff = _shard_inputs(dev)
+    b, nblk = tbl.shape
+    ident = torch.arange(nblk, device=dev).expand(b, nblk)
+    o, m, l = pk.paged_attention_partials_launch(
+        q, k, v, tbl, vlen, q_offset=qoff, causal=True,
+        logical_blocks=ident, entry_valid=torch.ones_like(ident))
+    want = pk.paged_attention_launch(q, k, v, tbl, vlen, q_offset=qoff)
+    got = (o / l.clamp(min=1e-30)[..., None]).movedim(3, 1).reshape(
+        want.shape).to(want.dtype)
+    torch.cuda.synchronize()
+    g, r = got.float().cpu(), want.float().cpu()
+    assert ((g - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
+
+
+def test_partials_wrapper_rejects_bad_input(dev):
+    q, k, v, tbl, vlen, qoff = _shard_inputs(dev)
+    keep = torch.arange(tbl.shape[1], device=dev).expand_as(tbl)
+    kw = dict(q_offset=qoff, causal=True, logical_blocks=keep,
+              entry_valid=torch.ones_like(keep))
+    reset_launch_counts()
+    with pytest.raises(ValueError):            # int8 pools: no partials
+        pk.paged_attention_partials(q, k.to(torch.int8), v.to(torch.int8),
+                                    tbl, vlen, **kw)
+    with pytest.raises(ValueError):            # logical_blocks shape
+        pk.paged_attention_partials_launch(
+            q, k, v, tbl, vlen, q_offset=qoff, causal=True,
+            logical_blocks=keep[:, :-1], entry_valid=keep[:, :-1])
+    assert launch_counts()["paged_attention_partials"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,causal", [
+    (2, 40, 40, 8, 2, 128, True),
+    (1, 33, 33, 4, 4, 32, True),
+    (1, 17, 70, 4, 1, 64, False),     # both dims ragged against the tiles
+    (2, 24, 48, 8, 4, 16, False),
+])
+def test_flash_kernel_close_to_plain(dev, dtype, b, sq, sk, h, hk, d,
+                                     causal):
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype) for s in ((b, sq, h, d), (b, sk, hk, d),
+                                         (b, sk, hk, d)))
+    reset_launch_counts()
+    out = fk.flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    ref = fk.flash_attention_plain(q, k, v, causal=causal, chunk_kv=16)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    o, r = out.float().cpu(), ref.float().cpu()
+    if dtype == torch.bfloat16:
+        assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
+    else:
+        torch.testing.assert_close(o, r, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wrapper_rejects_bad_input(dev):
+    q = torch.zeros((1, 8, 4, 16), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 16), device=dev, dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(ValueError):            # mixed dtypes
+        fk.flash_attention(q, k.float(), k.float())
+    with pytest.raises(ValueError):            # H % Hk != 0
+        fk.flash_attention_launch(q, k[:, :, :1].expand(1, 8, 3, 16)
+                                  .contiguous(), k[:, :, :1]
+                                  .expand(1, 8, 3, 16).contiguous())
+    with pytest.raises(ValueError):            # D % 4 != 0
+        fk.flash_attention_launch(q[..., :6].contiguous(),
+                                  k[..., :6].contiguous(),
+                                  k[..., :6].contiguous())
+    assert launch_counts()["flash_attention"] == 1
