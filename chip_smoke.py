@@ -12,14 +12,17 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build: every ``csrc/*.cu`` compiled by ``nvcc`` (in parallel);
 3. one phase per ported kernel at the main path's shapes (M = 8 slots
    x 16 tokens = 128 rows; K/N of chatglm3-6b's projections; paged
-   attention at B=8, Sq=16, H=32, Hk=2, D=128, 128 table entries; the
-   packed-query kernel at the same step's 67 tokens bucketed to 128),
-   each held against its plain PyTorch version (TiM: bit for bit;
-   attention: |diff| <= 2^-7 |ref| + 2e-3; packed attention also bit
-   for bit against the mixed kernel, token by token, and 0 on padding
-   tokens), timed with CUDA events beside the plain version, the work's
-   bound on the card and, where one PyTorch call computes the same
-   function, that call;
+   attention at B=8, Sq=16, H=32, Hk=2, D=128 over 2048-position
+   tables; the packed-query kernel at the same step's 67 tokens
+   bucketed to 128), each held against its plain PyTorch version (TiM:
+   bit for bit; attention: |diff| <= 2^-7 |ref| + 2e-3; packed
+   attention also bit for bit against the mixed kernel, token by token,
+   and 0 on padding tokens); the paged phases at block_size 16 and 64,
+   with bf16, int8 and f32 KV (f32 queries).  Each is timed with CUDA
+   events over back-to-back wrapper calls (``ms``) and by
+   torch.profiler (``device_ms``, the kernels alone), beside the plain
+   version, the work's bound on the card and, where one PyTorch call
+   computes the same function, that call;
 4. sharded attention (``repro_torch.distrib.decode_attn``, the
    compacted-partials kernel) over a bf16 pool of 262,144 blocks of 16
    (chatglm3-6b attention: H=32, Hk=2, D=128) cut into n = 4 contiguous
@@ -40,10 +43,10 @@ Phases (any failure exits non-zero; nothing is caught):
    reported, not asserted;
 5. flash attention (``repro_torch.kernels.flash_attention``): causal at
    B=1, Sq=Sk=8192 (chatglm3-6b's ``seq_length``), H=32, Hk=2, D=128,
-   bf16, and bidirectional at Sq=1000, Sk=8000, through the entry point
-   with the counters set to 0 before and read after, each held against
-   the plain scan (bf16 tolerance as attention); the kernel, plain and
-   SDPA (``enable_gqa``, at Sq = Sk) timed;
+   bf16 and f32, and bidirectional at Sq=1000, Sk=8000, through the
+   entry point with the counters set to 0 before and read after, each
+   held against the plain scan (the attention tolerance); the kernel,
+   plain and SDPA (``enable_gqa``) timed;
 6. engine runs: chatglm3-6b at full width (random weights from
    ``--seed``) served through ``ServeEngine`` under four ternary
    policies, each with every launch counter set to 0 before the run and
@@ -58,8 +61,14 @@ Phases (any failure exits non-zero; nothing is caught):
    per request equal step 6's policy-D run), P1 token-packed on the
    default pool, P2 token-packed on a pool at the hard floor
    ceil(2048 / 16) + 1 = 129 blocks swapping, P3 padded on that pool
-   recomputing; every request's tokens must equal P0's;
-8. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+   recomputing, P4 token-packed on that pool with ``preempt='auto'``
+   (its choices, the swap span split into gather, copy and sync, and
+   the copy rates are printed); every request's tokens must equal P0's;
+8. the F1 runs: ``ServeEngine(block_size=64)`` padded and packed, and a
+   ``compute_dtype='float32'`` config (first-step logits against the
+   plain route as in step 6), each through the paged kernels, their
+   tokens compared with P0's and reported;
+9. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of the JAX package.
 """
@@ -79,6 +88,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12          # outside the tensor cores (no TF32)
 
 TIM_SHAPES = [(4096, 4096), (4096, 256), (4096, 13696), (13696, 4096)]
 TIM_KERNELS = {
@@ -127,6 +137,30 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names, iters: int = 10):
+    """Device time per call of the kernels whose names contain one of
+    ``names`` (torch.profiler over ``iters`` calls after a warm call):
+    the kernels alone, without the host's time between launches.  None
+    when the trace holds no such device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names):
+            us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+    return us / 1e3 / iters if us else None
+
+
+PAGED_NAMES = ("paged_attn", "paged_merge")
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -219,18 +253,20 @@ def tim_phase(name, spec, gen, iters):
 # paged attention phase
 # ---------------------------------------------------------------------------
 
-def attn_inputs(gen, quant: bool):
+def attn_inputs(gen, quant: bool, bs: int = 16, f32: bool = False):
+    """The engine's mixed step: 8 slots x 16 tokens over 2048-position
+    tables of ``bs``-position blocks; bf16 (int8 codes with ``quant``) or
+    f32 queries and pools."""
     import torch
     from repro_torch.models.transformer import _kv_quantize
-    b, sq, h, hk, d, bs, nblk = 8, 16, 32, 2, 128, 16, 128
+    b, sq, h, hk, d = 8, 16, 32, 2, 128
+    nblk = 2048 // bs
     nb = b * (nblk + 1)
     dev = "cuda"
-    q = torch.randn((b, sq, h, d), generator=gen, device=dev
-                    ).to(torch.bfloat16)
-    k = torch.randn((nb, bs, hk, d), generator=gen, device=dev
-                    ).to(torch.bfloat16)
-    v = torch.randn((nb, bs, hk, d), generator=gen, device=dev
-                    ).to(torch.bfloat16)
+    dt = torch.float32 if f32 else torch.bfloat16
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((nb, bs, hk, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((nb, bs, hk, d), generator=gen, device=dev).to(dt)
     perm = torch.randperm(nb, generator=gen, device=dev)
     tables = perm[:b * nblk].reshape(b, nblk).to(torch.int32)
     # per-slot cache_len / n_new of a mixed step: long and short
@@ -245,6 +281,35 @@ def attn_inputs(gen, quant: bool):
         v, vs = _kv_quantize(v)
         kw = dict(k_scale=ks, v_scale=vs)
     return q, k, v, tables, cache_len + n_new, cache_len, kw
+
+
+# the paged phases' cases: (label, int8 KV, f32, block size); the first
+# is the kernel line's row
+ATTN_CASES = [("bf16", False, False, 16), ("int8", True, False, 16),
+              ("f32", False, True, 16), ("bf16 bs64", False, False, 64),
+              ("int8 bs64", True, False, 64), ("f32 bs64", False, True, 64)]
+
+
+def attn_bound(q, k, vlen, qoff, quant, causal, nbytes_extra,
+               all_rows=True):
+    """(ms, by): each slot's valid K/V once plus ``nbytes_extra``; 4 D
+    flops per query head and valid key (every row of the padded grid,
+    or only the real tokens), at the operands' rate."""
+    import torch
+    b, sq, h, d = q.shape
+    hk, bs = k.shape[2], k.shape[1]
+    pos_bytes = hk * d * k.element_size() * 2 + (hk * 4 if quant else 0)
+    nbytes = nbytes_extra
+    pairs = 0
+    for vl, qo, n in zip(vlen.tolist(), qoff.tolist(),
+                         (vlen - qoff).tolist()):
+        if vl <= 0:
+            continue
+        nbytes += -(-vl // bs) * bs * pos_bytes
+        for qi in range(sq if all_rows else min(n, sq)):
+            pairs += min(vl, qo + qi + 1) if causal else vl
+    rate = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    return bound(nbytes, 4.0 * d * h * pairs, rate)
 
 
 def packed_layout(vlen, qoff):
@@ -274,8 +339,8 @@ def packed_attn_phase(gen, iters):
     import torch
     from repro_torch.kernels import paged_attention as pk
     rows = []
-    for label, quant in [("bf16", False), ("int8", True)]:
-        q, k, v, tbl, vlen, qoff, kw = attn_inputs(gen, quant)
+    for label, quant, f32, bs in ATTN_CASES:
+        q, k, v, tbl, vlen, qoff, kw = attn_inputs(gen, quant, bs, f32)
         seg, tvl, tqo, slot, col, real = packed_layout(vlen, qoff)
         bucket = seg.shape[0]
         qf = torch.zeros((bucket, 1) + tuple(q.shape[2:]), device="cuda",
@@ -303,27 +368,27 @@ def packed_attn_phase(gen, iters):
                                  f"tokens are not 0")
         ms = time_ms(lambda: pk.paged_packed_attention_launch(
             *args, q_offset=tqo, **kw), iters)
+        dev_ms = device_ms(lambda: pk.paged_packed_attention_launch(
+            *args, q_offset=tqo, **kw), PAGED_NAMES, iters)
         plain_ms = time_ms(lambda: pk.paged_packed_attention_plain(
             *args, q_offset=tqo, chunk_kv=1024, **kw), max(2, iters // 4))
         lib_ms = packed_library_ms(qf, k, v, tbl, seg, tvl, iters) \
             if not quant else None
         h, d = q.shape[2], q.shape[3]
-        hk, bs = k.shape[2], k.shape[1]
-        pos_bytes = hk * d * k.element_size() * 2 + (hk * 4 if quant else 0)
         # each slot's valid K/V once (the distinct bytes), q in, out
-        nbytes = 2 * real * h * d * 2 + sum(
-            -(-int(vl) // bs) * bs * pos_bytes
-            for vl, qo in zip(vlen.tolist(), qoff.tolist()) if vl > qo)
-        ops = 4.0 * d * h * float(tvl.sum())
-        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S)
+        b_ms, b_by = attn_bound(
+            q, k, vlen, qoff, quant, True,
+            2 * real * h * d * q.element_size(), all_rows=False)
         log(f"[kernel paged_packed_attention {label}] T={real} bucket="
-            f"{bucket} H={h} Hk={hk} D={d} slots={tbl.shape[0]} "
-            f"nblk={tbl.shape[1]} max_abs_err={err} bit_equal_to_mixed=True "
-            f"padding_zero=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})")
+            f"{bucket} H={h} Hk={k.shape[2]} D={d} bs={bs} "
+            f"slots={tbl.shape[0]} nblk={tbl.shape[1]} max_abs_err={err} "
+            f"bit_equal_to_mixed=True padding_zero=True ms={ms:.4f} "
+            f"device_ms={dev_ms} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
         rows.append(dict(label=label, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, out, ref, mixed, qf, args
     return rows
 
 
@@ -347,10 +412,11 @@ def attn_phase(gen, iters):
     import torch
     from repro_torch.kernels import paged_attention as pk
     rows = []
-    for label, quant, causal in [("bf16 causal", False, True),
-                                 ("int8 causal", True, True),
-                                 ("bf16 causal=False", False, False)]:
-        q, k, v, tbl, vlen, qoff, kw = attn_inputs(gen, quant)
+    cases = [(label, quant, f32, bs, True)
+             for label, quant, f32, bs in ATTN_CASES]
+    cases.insert(3, ("bf16 causal=False", False, False, 16, False))
+    for label, quant, f32, bs, causal in cases:
+        q, k, v, tbl, vlen, qoff, kw = attn_inputs(gen, quant, bs, f32)
         args = (q, k, v, tbl, vlen)
         out = pk.paged_attention_launch(*args, q_offset=qoff, causal=causal,
                                         **kw)
@@ -363,30 +429,26 @@ def attn_phase(gen, iters):
                                  f"max |diff| {err} exceeds tolerance")
         ms = time_ms(lambda: pk.paged_attention_launch(
             *args, q_offset=qoff, causal=causal, **kw), iters)
+        dev_ms = device_ms(lambda: pk.paged_attention_launch(
+            *args, q_offset=qoff, causal=causal, **kw), PAGED_NAMES, iters)
         plain_ms = time_ms(lambda: pk.paged_attention_plain(
             *args, q_offset=qoff, chunk_kv=1024, causal=causal, **kw),
             max(2, iters // 4))
         lib_ms = attn_library_ms(q, k, v, tbl, vlen, qoff, kw, causal,
                                  iters) if not quant else None
         b, sq, h, d = q.shape
-        hk, bs = k.shape[2], k.shape[1]
-        pos_bytes = hk * d * k.element_size() * 2 + (hk * 4 if quant else 0)
-        nbytes = 2 * q.numel() * 2 + tbl.numel() * 4
-        pairs = 0
-        for bi in range(b):
-            vl, qo = int(vlen[bi]), int(qoff[bi])
-            nbytes += -(-vl // bs) * bs * pos_bytes
-            for qi in range(sq):
-                pairs += min(vl, qo + qi + 1) if causal else vl
-        ops = 4.0 * d * h * pairs          # QK^T and PV, 2 flops each
-        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S)
-        log(f"[kernel paged_attention {label}] B={b} Sq={sq} H={h} Hk={hk} "
-            f"D={d} nblk={tbl.shape[1]} max_abs_err={err} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
+        b_ms, b_by = attn_bound(q, k, vlen, qoff, quant, causal,
+                                2 * q.numel() * q.element_size()
+                                + tbl.numel() * 4)
+        log(f"[kernel paged_attention {label}] B={b} "
+            f"Sq={sq} H={h} Hk={k.shape[2]} D={d} bs={bs} "
+            f"nblk={tbl.shape[1]} causal={causal} max_abs_err={err} "
+            f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})")
         rows.append(dict(label=label, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, out, ref, args
     return rows
 
 
@@ -637,11 +699,14 @@ def sharded_phase(gen, iters):
                                  f"differ from their plain version: {perr}")
         ms = time_ms(lambda: pk.paged_attention_partials_launch(*args, **kw),
                      iters)
+        dev_ms = device_ms(lambda: pk.paged_attention_partials_launch(
+            *args, **kw), PAGED_NAMES, iters)
         unsharded_ms = time_ms(lambda: unsharded(case, k, v, False), iters)
         log(f"[sharded {name}] B={case['q'].shape[0]} Sq="
             f"{case['q'].shape[1]} nblk={case['tbl'].shape[1]} pool="
             f"{k.shape[0]} shards={SHARDS} world1_bit_equal_to_kernel={bit} "
             f"errors={res} shard0_partials={perr} shard0_ms={ms:.4f} "
+            f"shard0_device_ms={dev_ms} "
             f"unsharded_kernel_ms={unsharded_ms:.4f} launches={counts}")
         if name == "decode":
             plain_ms = time_ms(lambda: pk.paged_attention_partials_plain(
@@ -678,12 +743,13 @@ def flash_phase(gen, iters):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     h, hk, d = 32, 2, 128
     launches, errs, row = 0, [], None
-    for label, sq, sk, causal in [("causal", 8192, 8192, True),
-                                  ("bidirectional", 1000, 8000, False)]:
-        q = torch.randn((1, sq, h, d), generator=gen, device="cuda"
-                        ).to(torch.bfloat16)
+    for label, sq, sk, causal, dt in [
+            ("causal", 8192, 8192, True, torch.bfloat16),
+            ("bidirectional", 1000, 8000, False, torch.bfloat16),
+            ("causal f32", 8192, 8192, True, torch.float32)]:
+        q = torch.randn((1, sq, h, d), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((1, sk, hk, d), generator=gen, device="cuda"
-                            ).to(torch.bfloat16) for _ in range(2))
+                            ).to(dt) for _ in range(2))
         reset_launch_counts()
         out = fk.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -699,6 +765,8 @@ def flash_phase(gen, iters):
         errs.append(err)
         ms = time_ms(lambda: fk.flash_attention_launch(q, k, v,
                                                        causal=causal), iters)
+        dev_ms = device_ms(lambda: fk.flash_attention_launch(
+            q, k, v, causal=causal), ("flash_attn",), iters)
         plain_ms = time_ms(lambda: fk.flash_attention_plain(
             q, k, v, causal=causal), max(2, iters // 4))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -707,13 +775,17 @@ def flash_phase(gen, iters):
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
         pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel())   # q, out; k, v
-        b_ms, b_by = bound(nbytes, 4.0 * d * h * pairs, BF16_FLOPS_PER_S)
+        # q, out; k, v
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        b_ms, b_by = bound(nbytes, 4.0 * d * h * pairs,
+                           F32_FLOPS_PER_S if dt == torch.float32
+                           else BF16_FLOPS_PER_S)
         log(f"[kernel flash_attention {label}] B=1 Sq={sq} Sk={sk} H={h} "
-            f"Hk={hk} D={d} bf16 max_abs_err={err} ms={ms:.4f} "
+            f"Hk={hk} D={d} {str(dt)[6:]} max_abs_err={err} ms={ms:.4f} "
+            f"device_ms={dev_ms} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
             f"bound_ms={b_ms:.5f} ({b_by})")
-        if causal:
+        if label == "causal":
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
         del q, k, v, qt, kt, vt, out, ref
@@ -811,7 +883,8 @@ def policy_cfg(pol, layers):
                                      pack=pol["pack"]))
 
 
-def serve(label, params, cfg, seed, max_new=16, **engine_kw):
+def serve(label, params, cfg, seed, max_new=16, block_size=16,
+          **engine_kw):
     """Serve the 12 requests through ``ServeEngine`` with every launch
     counter set to 0 just before and read just after; returns (tokens by
     uid, stats, launch counts, wall s, digest, engine)."""
@@ -820,8 +893,8 @@ def serve(label, params, cfg, seed, max_new=16, **engine_kw):
     from repro_torch.serve import metrics
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(params, cfg, batch_slots=8, max_len=2048, chunk=16,
-                      block_size=16, token_budget=128, device="cuda",
-                      **engine_kw)
+                      block_size=block_size, token_budget=128,
+                      device="cuda", **engine_kw)
     reqs = make_requests(cfg.vocab_size, seed, max_new=max_new)
     for r in reqs:
         eng.submit(r)
@@ -929,6 +1002,22 @@ def log_run(label, st, wall, dig, eng):
         f"swap_d2h_fetches={st['swap_d2h_fetches']} "
         f"swap_d2h_bytes={eng.swap_d2h_bytes} "
         f"swap_d2h_s={eng.swap_d2h_seconds:.4f}")
+    if st["preemptions"]:
+        split = eng.swap_split
+        d2h, h2d = eng.swap_d2h_bytes, eng.swap_h2d_bytes
+        log(f"[swap {label}] preempt={eng.preempt} choices="
+            f"{eng.preempt_choices} host_link_bw={eng.host_link_bw:.3g} "
+            f"d2h split_s: gather={split.get('gather', 0.0):.6f} "
+            f"copy={split.get('copy', 0.0):.6f} "
+            f"sync={split.get('sync', 0.0):.6f} "
+            f"pinned_copy_GBps={gbps(d2h, split.get('copy', 0.0))} "
+            f"span_GBps={gbps(d2h, eng.swap_d2h_seconds)} "
+            f"h2d copies={eng.swap_h2d_copies} bytes={h2d} "
+            f"host_s={eng.swap_h2d_seconds:.4f}")
+
+
+def gbps(nbytes, seconds):
+    return round(nbytes / seconds / 1e9, 2) if seconds else None
 
 
 # the layout runs (policy D, full depth): engine options; P0 is the
@@ -940,13 +1029,14 @@ LAYOUT_RUNS = {
     "P1": dict(packed=True),
     "P2": dict(packed=True, num_blocks=FLOOR_BLOCKS, preempt="swap"),
     "P3": dict(packed=False, num_blocks=FLOOR_BLOCKS, preempt="recompute"),
+    "P4": dict(packed=True, num_blocks=FLOOR_BLOCKS, preempt="auto"),
 }
 
 
 def layout_runs(params, cfg, seed, base_toks):
-    """P0-P3; returns the packed kernel's launches in P1 + P2.  Every run
-    goes through before a failure is raised.  ``base_toks``: step 4's
-    policy-D tokens (16 per request)."""
+    """P0-P4; returns (the packed kernel's launches in P1, P2 and P4,
+    P0's tokens).  Every run goes through before a failure is raised.
+    ``base_toks``: step 4's policy-D tokens (16 per request)."""
     launches, failures, ref, ref_st = 0, [], None, None
     for name, kw in LAYOUT_RUNS.items():
         toks, st, counts, wall, dig, eng = serve(name, params, cfg, seed,
@@ -984,7 +1074,48 @@ def layout_runs(params, cfg, seed, base_toks):
             failures.append(f"{name}: nothing was recomputed: {st}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches
+    return launches, ref
+
+
+def f1_runs(params, cfg, seed, ref):
+    """Fault F1: block_size 64 (padded and packed) and an f32 compute
+    config serve on the card through the paged kernels (policy D's
+    params, full depth).  Each run's paged kernel must launch; its
+    tokens are compared with P0's and reported.  Returns the f32
+    config's first-step logits check."""
+    import torch
+    cfg32 = cfg.replace(compute_dtype="float32")
+    lg_k = first_step(params, cfg32, seed, "auto")
+    lg_p = first_step(params, cfg32, seed, "torch")
+    rel, agree, max_abs = logits_agreement(lg_k, lg_p, cfg.vocab_size)
+    log(f"[engine F1 f32] first-step logits kernel vs plain: rel_l2="
+        f"{rel:.3e} max_abs={max_abs:.4f} argmax_agree={agree:.3f}")
+    if not bool(torch.isfinite(lg_k[:, :cfg.vocab_size]).all()) or \
+            rel > 0.5 or agree < 0.75:
+        raise AssertionError(f"F1 f32: first-step logits of the kernel "
+                             f"route differ from the plain route (relative "
+                             f"L2 {rel:.3e}, argmax agreement {agree:.3f})")
+    failures = []
+    for name, c, kw in (("F1 bs64", cfg, dict(block_size=64)),
+                        ("F1 bs64 packed", cfg,
+                         dict(block_size=64, packed=True)),
+                        ("F1 f32", cfg32, {})):
+        toks, st, counts, wall, dig, eng = serve(name, params, c, seed,
+                                                 max_new=LAYOUT_NEW, **kw)
+        log_run(f"{name} {kw}", st, wall, dig, eng)
+        del eng
+        kern = "paged_packed_attention" if kw.get("packed") \
+            else "paged_attention"
+        if counts[kern] <= 0:
+            failures.append(f"{name}: {kern} never launched")
+        bad = [u for u in ref if toks[u] != ref[u]]
+        n_diff = sum(a != b for u in bad for a, b in zip(toks[u], ref[u]))
+        log(f"[run {name}] launches={counts} tokens equal to P0's: "
+            f"{not bad} (requests differing: {bad}, tokens differing: "
+            f"{n_diff} of {sum(map(len, toks.values()))})")
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def main(argv=None) -> int:
@@ -1038,8 +1169,10 @@ def main(argv=None) -> int:
         for n in launches:
             launches[n] += counts[n]
     params, cfg, base_toks, _ = kept
-    launches["paged_packed_attention"] = layout_runs(params, cfg, args.seed,
-                                                     base_toks)
+    launches["paged_packed_attention"], p0 = layout_runs(params, cfg,
+                                                         args.seed,
+                                                         base_toks)
+    f1_runs(params, cfg, args.seed, p0)
 
     kernels = []
     for name, spec in TIM_KERNELS.items():

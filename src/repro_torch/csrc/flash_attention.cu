@@ -9,29 +9,42 @@
 // out (B, Sq, H, D) in q's type.  Query row i (position i) attends to
 // keys j < Sk, and j <= i when causal (top-left aligned: both positions
 // count from 0, as the reference).  Query prep as the reference:
-// f32(q) * D^-0.5; scores, the online softmax (m_safe guard, corr =
-// exp(min(m - m_safe, 0))) and the accumulator in f32; one rounding to
-// the output type at the end.
+// f32(q) * D^-0.5 (on the tensor cores the scale multiplies the f32
+// score instead, in log2 units for exp2); the online softmax (m_safe
+// guard, corr = exp(min(m - m_safe, 0))) and the accumulator in f32;
+// one rounding to the output type at the end.
 //
-// Design: one block of 4 warps per (b, h, 16 query rows); each warp owns
-// 4 rows.  The Pallas kernel carried (m, l, acc) across the sequential
-// KV grid axis in VMEM; here a loop inside the block walks the KV tiles
-// of 32 keys, staged in shared memory as f32, with the running (m, l,
-// acc) in registers.  Lane j computes the full dot product of key j
-// (K tile rows padded to D + 4 floats so the lanes' float4 reads do not
-// share a bank; the query rows are broadcast reads), so the tile's max
-// and sum are warp reductions; for P.V lane t owns output columns
-// t + 32c and takes p_j by shuffle.  A causal block stops at its last
-// query row's position: the tiles past it are an exact no-op of the
-// update (p = 0, corr = 1).  The softmax is taken per 32-key tile, which
-// changes rounding, not the function; the plain version beside the
-// wrapper is the reference for the tolerance.
+// What bounds it: operations.  4 * D flops per query-key pair the mask
+// keeps (~0.55 TFLOP at causal 8192, H = 32), against ~0.1 GB of q, k,
+// v and out: far above the card's balance point, so the flops belong on
+// the tensor cores (f32 FMAs on the CUDA cores run ~15x below their
+// bf16 rate).
 //
-// Bound: operations (4 * D flops per query-key pair the mask keeps; the
-// K/V of one head is re-read per 16-row tile, from L2).  This first
-// kernel uses no tensor cores: f32 FMAs on the CUDA cores set its time.
+// Design (flash_attn_kernel, bf16 with D % 16 == 0 and D <= 128): one
+// block of 4 warps per (b, h, 64 query rows), 16 rows a warp.  K/V
+// tiles of 64 keys stay bf16 in shared memory, filled by cp.async 16
+// bytes a thread into a ring of 2 stages (the next tile loads while the
+// current one computes), chunks XOR-swizzled; ldmatrix feeds bf16
+// mma.sync m16n8k16 with f32 accumulators for S = Q K^T (Q fragments
+// held in registers) and for O += P V.  P goes in as two bf16 terms
+// (hi = bf16(p), lo = bf16(p - hi)), two MMAs a step: one bf16 rounding
+// of p puts early causal rows, which average a few keys, 2 bf16 ulps off
+// the plain version at causal 8192 (max |diff| 0.0078 against the bar
+// 2^-7 |ref| + 2e-3); the pair carries ~16 bits of p.  This changes
+// rounding, not the function; the plain version beside the wrapper is
+// the reference for the tolerance.  A causal block stops at
+// its last row's tile, and a warp skips a tile past its own last row
+// (an exact no-op of the update).  The blocks of the longest causal
+// walks are launched first.
+//
+// f32 (and a head size the tensor path does not take) keeps
+// flash_attn_fma_kernel: f32 FMAs on the CUDA cores, one block of 4
+// warps per (b, h, 16 query rows), lane j computing key j's dot product
+// of a 32-key f32 tile, P.V with lane t owning columns t + 32c.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "tc_sm90.cuh"
 
 namespace {
 
@@ -65,7 +78,7 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
 
 template <typename T, int DPL, bool CAUSAL>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_attn_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, int Sq,
                   int Sk, int H, int Hk, int D, float qscale) {
   extern __shared__ __align__(16) float smem[];
@@ -174,11 +187,227 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core kernel (bf16, D % 16 == 0, D <= DP)
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;    // query rows per block, 16 a warp
+constexpr int BKEY = 64;  // keys per tile
+constexpr int FST = 2;    // cp.async ring stages
+
+template <int DP>
+constexpr int tc_smem() {
+  return FST * 2 * BKEY * DP * 2;  // K and V tiles, bf16
+}
+
+template <int DP, bool CAUSAL>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                  int Hk, int D, float qscale) {
+  using namespace tc;
+  constexpr int ROWB = DP * 2;
+  constexpr int TILE = BKEY * ROWB;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t base = smem_u32(smem_tc);
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int hk = h / (H / Hk);
+  // the longest causal walks first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int rw = q0 + warp * 16;  // this warp's first row
+
+  uint32_t qa[DP / 16][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + g4 + 8 * i;
+    const __nv_bfloat16* qrow = q + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int d = ks * 16 + hf * 8 + 2 * t4;
+        qa[ks][i + 2 * hf] =
+            (row < Sq && d < D)
+                ? *reinterpret_cast<const uint32_t*>(qrow + d)
+                : 0u;
+      }
+    }
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  // scores in log2 units: exp(x) = exp2(x * log2(e))
+  const float sl2 = qscale * 1.4426950408889634f;
+  const int kend = CAUSAL ? min(Sk, q0 + BQ) : Sk;
+  const int ntiles = (kend + BKEY - 1) / BKEY;
+  const int chunks = D / 8;
+  auto load_tile = [&](int t) {
+    const uint32_t kb = base + (t % FST) * 2 * TILE, vb = kb + TILE;
+    for (int u = threadIdx.x; u < BKEY * chunks; u += WARPS * 32) {
+      const int key = u / chunks, c = u % chunks, kp = t * BKEY + key;
+      const size_t src =
+          (((size_t)b * Sk + min(kp, Sk - 1)) * Hk + hk) * D + c * 8;
+      const uint32_t off = swz(0, key, c, ROWB);
+      cp16(kb + off, k + src, kp < Sk ? 16 : 0);
+      cp16(vb + off, v + src, kp < Sk ? 16 : 0);
+    }
+    cp_commit();
+  };
+
+  load_tile(0);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile(t + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * BKEY;
+    const uint32_t kb = base + (t % FST) * 2 * TILE, vb = kb + TILE;
+    if (!CAUSAL || k0 <= rw + 15) {
+      const int mi = lane >> 3;
+      float sc[BKEY / 8][4];
+#pragma unroll
+      for (int n = 0; n < BKEY / 8; ++n)
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        if (ks * 16 >= D) break;
+#pragma unroll
+        for (int np = 0; np < BKEY / 16; ++np) {
+          uint32_t b0, b1, b2, b3;
+          const int key = np * 16 + (mi >> 1) * 8 + (lane & 7);
+          ldsm_x4(swz(kb, key, 2 * ks + (mi & 1), ROWB), b0, b1, b2, b3);
+          mma16816(sc[2 * np], qa[ks], b0, b1);
+          mma16816(sc[2 * np + 1], qa[ks], b2, b3);
+        }
+      }
+      // a tile below the diagonal and inside Sk needs no mask
+      const bool masked = (CAUSAL && k0 + BKEY - 1 > rw) || k0 + BKEY > Sk;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = rw + g4 + 8 * i;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < BKEY / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = sc[n][2 * i + e] * sl2;
+            if (masked) {
+              const int kp = k0 + n * 8 + 2 * t4 + e;
+              if (kp >= Sk || (CAUSAL && kp > row)) x = NEG_INF;
+            }
+            sc[n][2 * i + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mj = fmaxf(m[i], mx);
+        const float ms = fmaxf(mj, -1e29f);
+        float rs = 0.0f;
+#pragma unroll
+        for (int n = 0; n < BKEY / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(sc[n][2 * i + e] - ms);
+            sc[n][2 * i + e] = p;
+            rs += p;
+          }
+        }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        const float corr = exp2f(fminf(m[i] - ms, 0.0f));
+        l[i] = l[i] * corr + rs;
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          acc[n][2 * i] *= corr;
+          acc[n][2 * i + 1] *= corr;
+        }
+        m[i] = mj;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKEY / 16; ++kk) {
+        // A fragments of P (rows g4 / g4 + 8, keys 2t.. / 8 + 2t..) as
+        // hi + lo bf16 terms
+        uint32_t ph[4], pl[4];
+        split2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+        split2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+        split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+        split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+        const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
+        uint32_t vf[DP / 16][4];
+#pragma unroll
+        for (int nd = 0; nd < DP / 16; ++nd)
+          if (nd * 16 < D)
+            ldsm_x4_t(swz(vb, key, 2 * nd + (mi >> 1), ROWB), vf[nd][0],
+                      vf[nd][1], vf[nd][2], vf[nd][3]);
+        // every column block with hi, then with lo: no MMA waits on the
+        // one before it
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+#pragma unroll
+          for (int nd = 0; nd < DP / 16; ++nd) {
+            if (nd * 16 >= D) break;
+            mma16816(acc[2 * nd], t ? pl : ph, vf[nd][0], vf[nd][1]);
+            mma16816(acc[2 * nd + 1], t ? pl : ph, vf[nd][2], vf[nd][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + g4 + 8 * i;
+    if (row >= Sq) continue;  // the query tail
+    const float inv = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = n * 8 + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            acc[n][2 * i] / inv, acc[n][2 * i + 1] / inv);
+    }
+  }
+}
+
+template <int DP, bool CAUSAL>
+int go_tc(dim3 grid, cudaStream_t st, const void* q, const void* k,
+          const void* v, void* out, int Sq, int Sk, int H, int Hk, int D,
+          float qscale) {
+  auto kern = flash_attn_kernel<DP, CAUSAL>;
+  constexpr int smem = tc_smem<DP>();
+  static bool opted_in = false;  // above 48 KB: once per instantiation
+  if (smem > 48 * 1024 && !opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  kern<<<grid, WARPS * 32, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hk, D, qscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DPL, bool CAUSAL>
 int go(dim3 grid, size_t smem, cudaStream_t st, const void* q,
        const void* k, const void* v, void* out, int Sq, int Sk, int H,
        int Hk, int D, float qscale) {
-  auto kern = flash_attn_kernel<T, DPL, CAUSAL>;
+  auto kern = flash_attn_fma_kernel<T, DPL, CAUSAL>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -224,6 +453,7 @@ int go_dpl(bool causal, dim3 grid, size_t smem, cudaStream_t st,
 
 // Shapes as in the header; D % 4 == 0 and D <= 256, H % Hk == 0,
 // B * H <= 65535, Sq, Sk >= 1; bf16 = 1 for bf16 tensors, 0 for f32.
+// bf16 with D % 16 == 0 and D <= 128 runs the tensor-core kernel.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a shape the kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -234,9 +464,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (D < 4 || D > 256 || D % 4 != 0 || Hk < 1 || H % Hk != 0 || B < 1 ||
       Sq < 1 || Sk < 1 || (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && D % 16 == 0 && D <= 128) {
+    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+    if (D <= 64)
+      return causal ? go_tc<64, true>(grid, st, q, k, v, out, Sq, Sk, H, Hk,
+                                      D, qscale)
+                    : go_tc<64, false>(grid, st, q, k, v, out, Sq, Sk, H, Hk,
+                                       D, qscale);
+    return causal ? go_tc<128, true>(grid, st, q, k, v, out, Sq, Sk, H, Hk,
+                                     D, qscale)
+                  : go_tc<128, false>(grid, st, q, k, v, out, Sq, Sk, H, Hk,
+                                      D, qscale);
+  }
   const dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
   const size_t smem = sizeof(float) * (ROWS * D + BK * (D + 4) + BK * D);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? go_dpl<__nv_bfloat16>(causal, grid, smem, st, q, k, v, out,
                                       Sq, Sk, H, Hk, D, qscale)
               : go_dpl<float>(causal, grid, smem, st, q, k, v, out, Sq, Sk,

@@ -39,8 +39,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:12]
+    # the shared headers (csrc/*.cuh) are part of every source's build
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

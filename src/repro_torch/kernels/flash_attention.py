@@ -10,10 +10,12 @@ Hk, D), H % Hk == 0; causal masks are top-left aligned (query i sees
 keys j <= i, both from 0).
 
 Tolerance kernel vs plain: the kernel takes the online softmax per
-32-key tile and sums dot products in another order than the plain
-scan's ``chunk_kv`` chunks; both accumulate in f32 and round once to the
-output type, so bf16 outputs agree to about one bf16 ulp (|diff| <=
-2^-7 * |ref| + 2e-3 is asserted) and f32 outputs to f32 rounding.
+64-key tile on the tensor cores (bf16, P fed to P V as two bf16 terms) or
+per 32-key tile in f32 FMAs (f32), and sums dot products in another
+order than the plain scan's ``chunk_kv`` chunks; both accumulate in f32
+and round once to the output type, so bf16 outputs agree to about one
+bf16 ulp (|diff| <= 2^-7 * |ref| + 2e-3 is asserted) and f32 outputs to
+f32 rounding.
 """
 from __future__ import annotations
 

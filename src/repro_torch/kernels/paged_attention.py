@@ -18,15 +18,24 @@ shard's compacted table; ``paged_attention_partials_plain`` is the
 reference's XLA route for it (``distrib/decode_attn._local_partial`` on
 the gathered blocks at their logical positions).
 
-Tolerance kernel vs plain: the kernel takes the online softmax per KV
-block (block_size positions) and sums dot products in another order,
-where the plain scan reduces over ``chunk_kv`` positions at a time; both
-accumulate in f32 and round once to bf16 at the end, so outputs agree
-to about one bf16 ulp (|diff| <= 2^-7 * |ref| + 2e-3 is asserted).
+All three launch one split-KV walk and one merge kernel
+(``paged_attention_run``): a row's table entries are cut into ranges of
+``E`` entries (``_split``: a function of the table width and block size
+alone), each range's partials go to scratch, and the merge takes the
+ranges in ascending order by the log-sum-exp identity.
+
+Tolerance kernel vs plain: the kernel takes the online softmax per 16
+keys (32 on the f32 path), sums dot products in another order, feeds P
+to P V as three bf16 terms on the tensor cores, and merges ranges,
+where the plain scan reduces over ``chunk_kv`` positions at a time;
+both accumulate in f32 and round once to the output type at the end, so
+bf16 outputs agree to about one bf16 ulp (|diff| <= 2^-7 * |ref| + 2e-3
+is asserted) and the partials to f32 rounding of the scores.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,24 +86,29 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, kv_valid_len, *, q_of
                                 load_chunk, q.dtype)
 
 
-_ARGTYPES = {
-    "paged_attention_launch": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                               + [ctypes.c_float, ctypes.c_void_p]),
-    "paged_packed_attention_launch": ([ctypes.c_void_p] * 10
-                                      + [ctypes.c_int] * 9
-                                      + [ctypes.c_float, ctypes.c_void_p]),
-    "paged_attention_partials_launch": ([ctypes.c_void_p] * 11
-                                        + [ctypes.c_int] * 9
-                                        + [ctypes.c_float, ctypes.c_void_p]),
-}
+_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 14
+             + [ctypes.c_float, ctypes.c_void_p])
+
+# split-KV ranges: at least RANGE_POSITIONS positions, at most MAX_RANGES
+RANGE_POSITIONS = 256
+MAX_RANGES = 32
+_KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
-def _lib(name: str = "paged_attention_launch"):
-    fn = getattr(_build.load("paged_attention"), name)
+def _lib():
+    fn = _build.load("paged_attention").paged_attention_run
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _split(nblk: int, bs: int):
+    """(E, R): table entries per range and ranges per row.  A function
+    of the table width and block size alone, so a packed token and its
+    padded-grid row walk the same ranges."""
+    e = max(-(-RANGE_POSITIONS // bs), -(-nblk // MAX_RANGES))
+    return e, -(-nblk // e)
 
 
 def _per_slot(v, b: int, device) -> torch.Tensor:
@@ -103,18 +117,24 @@ def _per_slot(v, b: int, device) -> torch.Tensor:
 
 
 def _check_launch(q, k_pool, v_pool, k_scale, v_scale):
-    """Validate the launch operands; returns (quant, hk, d, nb, bs)."""
+    """Validate the launch operands; returns (quant, hk, d, nb, bs).
+    q bf16 or f32; pools int8 (with bf16 scales), bf16, or f32 (f32
+    queries only); D <= 256; any block size."""
     h, d = q.shape[2], q.shape[3]
     nb, bs, hk = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     quant = k_scale is not None
     dev = q.device
-    if not q.is_cuda or q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError("q: expected a contiguous bf16 CUDA tensor")
-    kv_dtype = torch.int8 if quant else torch.bfloat16
+    if not q.is_cuda or q.dtype not in (torch.bfloat16, torch.float32) \
+            or not q.is_contiguous():
+        raise ValueError("q: expected a contiguous bf16 or f32 CUDA tensor")
+    kv_ok = (torch.int8,) if quant else (
+        (torch.bfloat16, torch.float32) if q.dtype == torch.float32
+        else (torch.bfloat16,))
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.device != dev or t.dtype != kv_dtype or not t.is_contiguous() \
+        if t.device != dev or t.dtype not in kv_ok \
+                or t.dtype != k_pool.dtype or not t.is_contiguous() \
                 or tuple(t.shape) != (nb, bs, hk, d):
-            raise ValueError(f"{name}: expected contiguous {kv_dtype} "
+            raise ValueError(f"{name}: expected contiguous {kv_ok} "
                              f"{(nb, bs, hk, d)} on {dev}")
     if quant:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -123,35 +143,60 @@ def _check_launch(q, k_pool, v_pool, k_scale, v_scale):
                     or tuple(t.shape) != (nb, bs, hk):
                 raise ValueError(f"{name}: expected contiguous bf16 "
                                  f"{(nb, bs, hk)} on {dev}")
-    if h % hk or d > 256 or bs > 32 or bs * d > 6144:
-        raise ValueError(f"unsupported shape: H={h} Hk={hk} D={d} bs={bs}")
+    if h % hk or d > 256 or q.shape[0] > 65535:
+        raise ValueError(f"unsupported shape: B={q.shape[0]} H={h} Hk={hk} "
+                         f"D={d}")
     return quant, hk, d, nb, bs
 
 
+@functools.lru_cache(maxsize=None)
 def _qscale(d: int) -> float:
     return float(torch.tensor(d ** -0.5, dtype=torch.float32))
+
+
+def _run(what, q, k_pool, v_pool, tbl, vlen, qoff, *, causal, k_scale=None,
+         v_scale=None, seg=None, lblk=None, sel=None, out=None, o=None,
+         m=None, l=None):
+    """One call of ``paged_attention_run`` (the walk and the merge) with
+    its f32 scratch; every operand already validated and on the card."""
+    b, sq, h, d = q.shape
+    nb, bs, hk = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    nslots, nblk = tbl.shape
+    e, r = _split(nblk, bs)
+    rows = b * h * sq
+    dev = q.device
+    # one f32 scratch: pacc (rows, R, D), then pm and pl (rows, R)
+    scratch = torch.empty(rows * r * (d + 2), device=dev,
+                          dtype=torch.float32)
+    pacc, pm, pl = scratch.split([rows * r * d, rows * r, rows * r])
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    err = _lib()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
+        ptr(v_scale), tbl.data_ptr(), ptr(seg), vlen.data_ptr(),
+        qoff.data_ptr(), ptr(lblk), ptr(sel), ptr(out), ptr(o), ptr(m),
+        ptr(l), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), b, sq, h, hk,
+        d, nb, bs, nslots, nblk, e, r, int(causal),
+        int(q.dtype == torch.float32), _KV_TYPES[k_pool.dtype], _qscale(d),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, what)
 
 
 def paged_attention_launch(q, k_pool, v_pool, block_tables, kv_valid_len,
                            *, q_offset=None, k_scale=None, v_scale=None,
                            causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only)."""
-    b, sq, h, d = q.shape
-    quant, hk, d, nb, bs = _check_launch(q, k_pool, v_pool, k_scale, v_scale)
+    """Launch the CUDA kernels (CUDA tensors only)."""
+    b = q.shape[0]
+    quant, *_ = _check_launch(q, k_pool, v_pool, k_scale, v_scale)
     dev = q.device
     tbl = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    nblk = tbl.shape[1]
-    vlen = _per_slot(kv_valid_len, b, dev)
-    qoff = _per_slot(q_offset, b, dev)
+    if tbl.ndim != 2 or tbl.shape[0] != b:
+        raise ValueError(f"block_tables: expected ({b}, nblk), got "
+                         f"{tuple(tbl.shape)}")
     out = torch.empty_like(q)
-    dummy = q  # never read without quant
-    err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 (k_scale if quant else dummy).data_ptr(),
-                 (v_scale if quant else dummy).data_ptr(), tbl.data_ptr(),
-                 vlen.data_ptr(), qoff.data_ptr(), out.data_ptr(), b, sq, h,
-                 hk, d, nb, bs, nblk, int(causal), int(quant), _qscale(d),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_attention")
+    _run("paged_attention", q, k_pool, v_pool, tbl,
+         _per_slot(kv_valid_len, b, dev), _per_slot(q_offset, b, dev),
+         causal=causal, k_scale=k_scale if quant else None,
+         v_scale=v_scale if quant else None, out=out)
     return out
 
 
@@ -193,17 +238,16 @@ def paged_packed_attention_plain(q, k_pool, v_pool, block_tables, seg_ids,
 def paged_packed_attention_launch(q, k_pool, v_pool, block_tables, seg_ids,
                                   kv_valid_len, *, q_offset, k_scale=None,
                                   v_scale=None) -> torch.Tensor:
-    """Launch the packed-query CUDA kernel (CUDA tensors only)."""
+    """Launch the packed-query CUDA kernels (CUDA tensors only)."""
     t, sq, h, d = q.shape
     if sq != 1:
         raise ValueError(f"packed queries are (T, 1, H, D), got {q.shape}")
-    quant, hk, d, nb, bs = _check_launch(q, k_pool, v_pool, k_scale, v_scale)
+    quant, *_ = _check_launch(q, k_pool, v_pool, k_scale, v_scale)
     dev = q.device
     tbl = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     if tbl.ndim != 2 or tbl.shape[0] < 1:
         raise ValueError(f"block_tables: expected (slots, nblk), got "
                          f"{tuple(tbl.shape)}")
-    nslots, nblk = tbl.shape
     per_token = [torch.as_tensor(a, device=dev).to(torch.int32).contiguous()
                  for a in (seg_ids, kv_valid_len, q_offset)]
     for name, a in zip(("seg_ids", "kv_valid_len", "q_offset"), per_token):
@@ -212,15 +256,9 @@ def paged_packed_attention_launch(q, k_pool, v_pool, block_tables, seg_ids,
                              f"{tuple(a.shape)}")
     seg, vlen, qoff = per_token
     out = torch.empty_like(q)
-    dummy = q  # never read without quant
-    err = _lib("paged_packed_attention_launch")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        (k_scale if quant else dummy).data_ptr(),
-        (v_scale if quant else dummy).data_ptr(), tbl.data_ptr(),
-        seg.data_ptr(), vlen.data_ptr(), qoff.data_ptr(), out.data_ptr(), t,
-        h, hk, d, nb, bs, nslots, nblk, int(quant), _qscale(d),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_packed_attention")
+    _run("paged_packed_attention", q, k_pool, v_pool, tbl, vlen, qoff,
+         causal=True, k_scale=k_scale if quant else None,
+         v_scale=v_scale if quant else None, seg=seg, out=out)
     return out
 
 
@@ -278,7 +316,7 @@ def paged_attention_partials_launch(q, k_pool, v_pool, block_tables,
                                     kv_valid_len, *, q_offset=None,
                                     causal: bool, logical_blocks,
                                     entry_valid):
-    """Launch the compacted-partials CUDA kernel (CUDA tensors only)."""
+    """Launch the compacted-partials CUDA kernels (CUDA tensors only)."""
     b, sq, h, d = q.shape
     _, hk, d, nb, bs = _check_launch(q, k_pool, v_pool, None, None)
     dev = q.device
@@ -290,19 +328,13 @@ def paged_attention_partials_launch(q, k_pool, v_pool, block_tables,
             raise ValueError(f"{name}: expected ({b}, nblk) like "
                              f"block_tables, got {tuple(a.shape)}")
     tbl, lblk, sel = ints
-    vlen = _per_slot(kv_valid_len, b, dev)
-    qoff = _per_slot(q_offset, b, dev)
     g = h // hk
     o = torch.empty((b, hk, g, sq, d), device=dev, dtype=torch.float32)
     m = torch.empty((b, hk, g, sq), device=dev, dtype=torch.float32)
     l = torch.empty_like(m)
-    err = _lib("paged_attention_partials_launch")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
-        lblk.data_ptr(), sel.data_ptr(), vlen.data_ptr(), qoff.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(), b, sq, h, hk, d, nb, bs,
-        tbl.shape[1], int(causal), _qscale(d),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_attention_partials")
+    _run("paged_attention_partials", q, k_pool, v_pool, tbl,
+         _per_slot(kv_valid_len, b, dev), _per_slot(q_offset, b, dev),
+         causal=causal, lblk=lblk, sel=sel, o=o, m=m, l=l)
     return o, m, l
 
 

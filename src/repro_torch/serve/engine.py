@@ -57,12 +57,15 @@ from repro_torch.serve.block_pool import (ROOT_HASH, BlockPool, chain_hash,
 _TERNARY_LAYER_KEYS = {"q", "k", "v", "o", "gate", "up", "down"}
 _KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
-# Swap-vs-recompute crossover defaults: the H100 SXM's published peaks
-# (NVIDIA data sheet) — 989 TFLOP/s bf16 dense for replaying dropped
-# tokens, and PCIe Gen5 x16, 64 GB/s per direction, for the host link a
-# swap crosses twice.
+# Swap-vs-recompute crossover defaults: 989 TFLOP/s bf16 dense for
+# replaying dropped tokens (the H100 SXM's published peak, NVIDIA data
+# sheet), and 44 GB/s for the host link a swap crosses twice: the
+# page-locked device-to-host copy of fetch_kv_blocks as chip_smoke.py
+# measures it on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# (43.5-44.8 GB/s over 41 MB swaps; the PCIe Gen5 x16 data-sheet peak
+# is 64 GB/s).
 H100_BF16_FLOPS = 989e12
-H100_HOST_LINK_BW = 64e9
+H100_HOST_LINK_BW = 44e9
 
 
 # ---------------------------------------------------------------------------
@@ -160,34 +163,92 @@ def copy_kv_block(caches, src: int, dst: int):
     return caches
 
 
-def fetch_kv_blocks(caches, bids) -> Dict[str, torch.Tensor]:
+def fetch_kv_blocks(caches, bids,
+                    split: Optional[Dict[str, float]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Device -> host copy of physical KV blocks ``bids`` (every layer;
     K, V and any scales): the swap-out half of preemption.  Returns
     {key: (layers, len(bids), block_size, ...) CPU tensor}, all carved
-    from ONE synchronous device-to-host copy into pageable memory."""
+    from ONE host buffer.  A CUDA cache is gathered on the device and
+    copied into page-locked memory by one ``non_blocking`` copy, then one
+    synchronisation of the stream, so no later host write can race the
+    copy; a CPU cache is gathered in place.  ``split`` (optional) gets
+    the seconds of the gather and the copy (device time, CUDA events)
+    and of the synchronisation (host wait) added under "gather", "copy"
+    and "sync"."""
     dev = caches[0]["k"].device
-    idx = torch.as_tensor(np.asarray(bids, np.int64), device=dev)
     keys = [k for k in _KV_KEYS if k in caches[0]]
+    n = len(bids)
+    shapes = [(len(caches), n) + tuple(caches[0][k].shape[1:]) for k in keys]
+    sizes = [int(np.prod(s)) * caches[0][k].element_size()
+             for s, k in zip(shapes, keys)]
+    cuda = dev.type == "cuda"
+    if cuda:   # allocated before the timed span
+        host = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+    timed = cuda and split is not None
+    if timed:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+    idx = torch.as_tensor(np.asarray(bids, np.int64), device=dev)
     parts = [torch.stack([layer[k].index_select(0, idx) for layer in caches])
              for k in keys]
-    host = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts]).cpu()
+    flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
+    if cuda:
+        if timed:
+            ev[1].record()
+        host.copy_(flat, non_blocking=True)
+        if timed:
+            ev[2].record()
+        t0 = time.perf_counter()
+        torch.cuda.current_stream(dev).synchronize()
+        if timed:
+            split["sync"] = split.get("sync", 0.0) + time.perf_counter() - t0
+            for name, a, b in (("gather", 0, 1), ("copy", 1, 2)):
+                split[name] = split.get(name, 0.0) \
+                    + ev[a].elapsed_time(ev[b]) / 1e3
+    else:
+        host = flat
     out, off = {}, 0
-    for k, p in zip(keys, parts):
-        n = p.numel() * p.element_size()
-        out[k] = host[off:off + n].view(p.dtype).reshape(p.shape)
-        off += n
+    for k, shape, size in zip(keys, shapes, sizes):
+        out[k] = host[off:off + size].view(caches[0][k].dtype).reshape(shape)
+        off += size
     return out
 
 
-def write_kv_block(caches, dst: int, values: Dict[str, torch.Tensor]):
-    """Host -> device restore of ONE physical block from a
-    ``fetch_kv_blocks``-shaped tree sliced to that block ({key: (layers,
-    block_size, ...)}): the swap-in half, written in place."""
-    for key, v in values.items():
-        dv = v.to(caches[0][key].device)
-        for layer, row in zip(caches, dv):
-            layer[key][dst] = row
-    return caches
+def write_kv_blocks(caches, dsts: Sequence[int],
+                    values: Sequence[Dict[str, torch.Tensor]]) -> int:
+    """Host -> device restore of physical blocks ``dsts``, each from a
+    ``fetch_kv_blocks``-shaped tree sliced to one block ({key: (layers,
+    block_size, ...)}): the swap-in half, written in place.  The blocks
+    are packed into one host buffer (page-locked for a CUDA cache, which
+    the host never writes again) and go up in ONE ``non_blocking``
+    host-to-device copy, then one indexed write per layer and key, all
+    in stream order.  Returns the bytes copied."""
+    if not dsts:
+        return 0
+    dev = caches[0]["k"].device
+    keys = list(values[0])
+    n = len(dsts)
+    shapes = [(len(caches), n) + tuple(values[0][k].shape[1:]) for k in keys]
+    dtypes = [values[0][k].dtype for k in keys]
+    sizes = [int(np.prod(s)) * values[0][k].element_size()
+             for s, k in zip(shapes, keys)]
+    host = torch.empty(sum(sizes), dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    regions, off = [], 0
+    for k, shape, dt, size in zip(keys, shapes, dtypes, sizes):
+        region = host[off:off + size].view(dt).view(shape)
+        for i, v in enumerate(values):
+            region[:, i].copy_(v[k])
+        regions.append((k, off, size, dt, shape))
+        off += size
+    dv = host.to(dev, non_blocking=True)
+    idx = torch.as_tensor(np.asarray(dsts, np.int64), device=dev)
+    for k, off, size, dt, shape in regions:
+        rows = dv[off:off + size].view(dt).view(shape)
+        for layer, row in zip(caches, rows):
+            layer[k].index_copy_(0, idx, row)
+    return int(host.numel())
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
@@ -355,6 +416,14 @@ class ServeEngine:
         self.swap_d2h_fetches = 0
         self.swap_d2h_bytes = 0          # host-side size of the arena
         self.swap_d2h_seconds = 0.0      # wall time of the swap-out copies
+        # the swap-out span split (gather, copy: device s; sync: host s),
+        # the swap-in copies (host s: packing and enqueue; the copy runs
+        # in stream order), and each preemption's swap/recompute choice
+        self.swap_split: Dict[str, float] = {}
+        self.swap_h2d_copies = 0
+        self.swap_h2d_bytes = 0
+        self.swap_h2d_seconds = 0.0
+        self.preempt_choices = {"swap": 0, "recompute": 0}
         # crossover inputs, counted as the reference counts them: every
         # tensor of the params tree, and the KV bytes of one block
         self._n_params = _count_params(params)
@@ -566,6 +635,8 @@ class ServeEngine:
         covered = int(res["covered"])
         swap = res["swap"]
         jb = int(self.slot_nblocks[slot])
+        dsts: List[int] = []
+        vals: List[Dict[str, torch.Tensor]] = []
         while jb in swap and matched == jb * bs:
             take = min(covered, (jb + 1) * bs) - jb * bs
             if take <= 0 or matched + take > cap:
@@ -573,7 +644,8 @@ class ServeEngine:
             bid = self._alloc_block()
             if bid is None:
                 break                 # recompute the rest instead
-            self.caches = write_kv_block(self.caches, bid, swap.pop(jb))
+            dsts.append(bid)
+            vals.append(swap.pop(jb))
             self.block_tables[slot, jb] = bid
             self.slot_nblocks[slot] = jb + 1
             if take == bs and self.prefix_reuse:
@@ -586,6 +658,11 @@ class ServeEngine:
             self.swapped_in_blocks += 1
             self.swapped_in_tokens += take
             jb += 1
+        if dsts:
+            t0 = time.perf_counter()
+            self.swap_h2d_bytes += write_kv_blocks(self.caches, dsts, vals)
+            self.swap_h2d_seconds += time.perf_counter() - t0
+            self.swap_h2d_copies += 1
         return matched
 
     # -- preemption / swap --------------------------------------------------
@@ -641,9 +718,15 @@ class ServeEngine:
                if self.pool.refcount[int(self.block_tables[victim, jb])]
                == 1]
         swap: Dict[int, Dict[str, torch.Tensor]] = {}
-        if own and self._swap_or_recompute(covered, len(own)) == "swap":
+        choice = self._swap_or_recompute(covered, len(own)) if own \
+            else None
+        if choice is not None:
+            self.preempt_choices[choice] = \
+                self.preempt_choices.get(choice, 0) + 1
+        if choice == "swap":
             t0 = time.perf_counter()
-            fetched = fetch_kv_blocks(self.caches, [b for _, b in own])
+            fetched = fetch_kv_blocks(self.caches, [b for _, b in own],
+                                      self.swap_split)
             self.swap_d2h_seconds += time.perf_counter() - t0
             self.swap_d2h_bytes += sum(t.numel() * t.element_size()
                                        for t in fetched.values())

@@ -6,10 +6,12 @@ tests/test_torch_cuda.py``.  Without a card every test skips.
 
 Tolerances: the TiM kernels equal their plain versions bit for bit
 (exact int32 products, the same correctly rounded f32 epilogue); paged
-attention, mixed and packed, agrees to about one bf16 ulp (per-KV-block
-online softmax and another summation order): |diff| <= 2^-7 * |ref| +
-2e-3.  The packed kernel equals the mixed kernel bit for bit, token by
-token (the same compiled kernel, Sq = 1).  The compacted partials
+attention, mixed and packed, at block_size 16 and 64, agrees to about
+one bf16 ulp (online softmax per 16 keys, split-KV ranges merged by the
+lse identity, another summation order): |diff| <= 2^-7 * |ref| + 2e-3,
+and with f32 queries to f32 rounding (2e-5).  The packed kernel equals
+the mixed kernel bit for bit, token by token (the same ranges and the
+same per-row arithmetic, Sq = 1).  The compacted partials
 (o, m, l), f32, agree with their plain version to f32 rounding of the
 scores: |dm| <= 1e-5 * |m| + 1e-5, |dl| and |do| <= 1e-4 * l (each p
 term to ~1e-6, summed over at most l's worth of probability mass);
@@ -80,18 +82,25 @@ def test_tim_wrapper_counts_and_rejects_bad_input(dev):
                          need_t=False)
 
 
-def _attn_inputs(dev, quant):
+KV_MODES = ["bf16", "int8", "f32"]
+BLOCK_SIZES = [16, 64]
+
+
+def _attn_inputs(dev, quant, bs=16, f32=False):
+    """3 slots over 1024-position tables (several split-KV ranges at
+    either block size): a long cache, one with unassigned entries, one
+    fully masked."""
     rng = np.random.default_rng(3)
-    b, sq, h, hk, d, bs, nblk, nb = 3, 4, 8, 2, 128, 16, 6, 20
-    q = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(
-        np.float32)).bfloat16().to(dev)
-    k = torch.from_numpy(rng.standard_normal((nb, bs, hk, d)).astype(
-        np.float32)).bfloat16().to(dev)
-    v = torch.from_numpy(rng.standard_normal((nb, bs, hk, d)).astype(
-        np.float32)).bfloat16().to(dev)
+    b, sq, h, hk, d = 3, 4, 8, 2, 128
+    nblk = 1024 // bs
+    nb = 4 * nblk + 2                  # room for _packed_inputs' 4 slots
+    dt = torch.float32 if f32 else torch.bfloat16
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev, dt)
+    q, k, v = f(b, sq, h, d), f(nb, bs, hk, d), f(nb, bs, hk, d)
     tbl = rng.permutation(nb)[:b * nblk].reshape(b, nblk).astype(np.int32)
-    tbl[1, 3:] = -1
-    vlen = np.array([70, 33, 0], np.int32)       # slot 2: fully masked
+    tbl[1, -(-333 // bs):] = -1
+    vlen = np.array([700, 333, 0], np.int32)     # slot 2: fully masked
     qoff = vlen - np.array([4, 1, 0], np.int32)
     kw = {}
     if quant:
@@ -103,36 +112,77 @@ def _attn_inputs(dev, quant):
             kw)
 
 
-@pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("causal", [True, False])
-def test_paged_kernel_close_to_plain(dev, quant, causal):
-    q, k, v, tbl, vlen, qoff, kw = _attn_inputs(dev, quant)
-    reset_launch_counts()
-    out = pk.paged_attention(q, k, v, tbl, vlen, q_offset=qoff,
-                             chunk_kv=32, causal=causal, **kw)
-    assert launch_counts()["paged_attention"] == 1
-    ref = pk.paged_attention_plain(q, k, v, tbl, vlen, q_offset=qoff,
-                                   chunk_kv=32, causal=causal, **kw)
-    torch.cuda.synchronize()
+def _close(out, ref):
+    """bf16: |diff| <= 2^-7 |ref| + 2e-3; f32: f32 rounding (2e-5)."""
     o, r = out.float().cpu(), ref.float().cpu()
     assert torch.isfinite(o).all()
-    assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
-    assert not o[2].any()
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(o, r, rtol=2e-5, atol=2e-5)
+    else:
+        assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
 
 
-def _packed_inputs(dev, quant):
-    """A mixed step of 4 slots (prefill past a block boundary, a fresh
-    prompt, a decode, an idle slot) as the padded grid and as its
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_paged_kernel_close_to_plain(dev, quant, causal, bs):
+    q, k, v, tbl, vlen, qoff, kw = _attn_inputs(dev, quant, bs)
+    reset_launch_counts()
+    out = pk.paged_attention(q, k, v, tbl, vlen, q_offset=qoff,
+                             chunk_kv=64, causal=causal, **kw)
+    assert launch_counts()["paged_attention"] == 1
+    ref = pk.paged_attention_plain(q, k, v, tbl, vlen, q_offset=qoff,
+                                   chunk_kv=64, causal=causal, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert not out[2].any()
+
+
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_paged_kernel_f32_close_to_plain(dev, quant, causal, bs):
+    """f32 queries (the FMA walk): f32 pools, or int8 codes dequantized
+    in f32."""
+    q, k, v, tbl, vlen, qoff, kw = _attn_inputs(dev, quant, bs, f32=True)
+    out = pk.paged_attention(q, k, v, tbl, vlen, q_offset=qoff,
+                             chunk_kv=64, causal=causal, **kw)
+    ref = pk.paged_attention_plain(q, k, v, tbl, vlen, q_offset=qoff,
+                                   chunk_kv=64, causal=causal, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    _close(out, ref)
+    assert not out[2].any()
+
+
+def test_paged_kernel_f32_queries_over_bf16_pool(dev):
+    """An f32 compute config serves over the engine's bf16 cache."""
+    q, k, v, tbl, vlen, qoff, _ = _attn_inputs(dev, False, 64)
+    q = q.float()
+    out = pk.paged_attention(q, k, v, tbl, vlen, q_offset=qoff)
+    ref = pk.paged_attention_plain(q, k, v, tbl, vlen, q_offset=qoff,
+                                   chunk_kv=64)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    with pytest.raises(ValueError):            # bf16 queries, f32 pools
+        pk.paged_attention_launch(q.bfloat16(), k.float(), v.float(), tbl,
+                                  vlen, q_offset=qoff)
+
+
+def _packed_inputs(dev, quant, bs=16, f32=False):
+    """A mixed step of 4 slots (prefill across a split-KV range boundary,
+    a fresh prompt, a decode, an idle slot) as the padded grid and as its
     flattened tokens plus 3 padding tokens."""
-    q, k, v, _, _, _, kw = _attn_inputs(dev, quant)
+    q, k, v, _, _, _, kw = _attn_inputs(dev, quant, bs, f32)
     rng = np.random.default_rng(7)
-    offs, n_new = [37, 0, 70, 0], [4, 5, 1, 0]
+    offs, n_new = [254, 0, 700, 0], [4, 5, 1, 0]
     slots, chunk, h, d = 4, 5, q.shape[2], q.shape[3]
-    nb = k.shape[0]
-    tbl = rng.permutation(nb)[:slots * 4].reshape(slots, 4).astype(np.int32)
+    nb, nblk = k.shape[0], 1024 // bs
+    tbl = rng.permutation(nb)[:slots * nblk].reshape(slots, nblk).astype(
+        np.int32)
     tbl[1, 1:] = -1
     qpad = torch.from_numpy(rng.standard_normal((slots, chunk, h, d)).astype(
-        np.float32)).bfloat16().to(dev)
+        np.float32)).to(dev, q.dtype)
     seg, vlen, qoff, where = [], [], [], []
     for i, (o, n) in enumerate(zip(offs, n_new)):
         for j in range(n):
@@ -156,27 +206,54 @@ def _packed_inputs(dev, quant):
     return padded, flat, where, kw
 
 
-@pytest.mark.parametrize("quant", [False, True])
-def test_packed_kernel_close_to_plain_and_equal_to_mixed(dev, quant):
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("mode", KV_MODES)
+def test_packed_kernel_close_to_plain_and_equal_to_mixed(dev, mode, bs):
     (qpad, k, v, tbl, vlen_s, qoff_s), (qf, seg, vlen, qoff), where, kw = \
-        _packed_inputs(dev, quant)
+        _packed_inputs(dev, mode == "int8", bs, mode == "f32")
     reset_launch_counts()
     out = pk.paged_packed_attention(qf, k, v, tbl, seg, vlen, q_offset=qoff,
-                                    chunk_kv=32, **kw)
+                                    chunk_kv=64, **kw)
     assert launch_counts()["paged_packed_attention"] == 1
     ref = pk.paged_packed_attention_plain(qf, k, v, tbl, seg, vlen,
-                                          q_offset=qoff, chunk_kv=32, **kw)
+                                          q_offset=qoff, chunk_kv=64, **kw)
     mixed = pk.paged_attention_launch(qpad, k, v, tbl, vlen_s,
                                       q_offset=qoff_s, **kw)
     torch.cuda.synchronize()
-    o, r = out.float().cpu(), ref.float().cpu()
-    assert torch.isfinite(o).all()
-    assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
+    _close(out, ref)
     for t, w in enumerate(where):
         if w is None:
             assert not out[t].any()
         else:
             assert torch.equal(out[t, 0], mixed[w]), (t, w)
+
+
+@pytest.mark.parametrize("d", [8, 72])
+def test_paged_kernel_bf16_small_head_fma_walk(dev, d):
+    """bf16 queries at a head size the tensor-core walk does not take
+    (D % 16 != 0) run the FMA walk: close to plain, and a packed token
+    equals its padded row bit for bit."""
+    rng = np.random.default_rng(d)
+    b, sq, h, hk, bs, nblk = 2, 3, 4, 2, 64, 8
+    nb = b * nblk + 1
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev, torch.bfloat16)
+    q, k, v = f(b, sq, h, d), f(nb, bs, hk, d), f(nb, bs, hk, d)
+    tbl = torch.from_numpy(rng.permutation(nb)[:b * nblk].reshape(
+        b, nblk).astype(np.int32)).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    vlen = torch.tensor([500, 64], **i32)
+    qoff = vlen - sq
+    out = pk.paged_attention_launch(q, k, v, tbl, vlen, q_offset=qoff)
+    ref = pk.paged_attention_plain(q, k, v, tbl, vlen, q_offset=qoff,
+                                   chunk_kv=64)
+    seg = torch.tensor([0, 0, 0, 1, 1, 1], **i32)
+    pos = qoff[seg.long()] + torch.tensor([0, 1, 2, 0, 1, 2], **i32)
+    packed = pk.paged_packed_attention_launch(
+        q.reshape(b * sq, 1, h, d), k, v, tbl, seg, pos + 1, q_offset=pos)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert torch.equal(packed[:, 0], out.reshape(b * sq, h, d))
 
 
 def test_packed_wrapper_counts_and_rejects_bad_input(dev):
@@ -199,16 +276,19 @@ def test_packed_wrapper_counts_and_rejects_bad_input(dev):
     assert launch_counts()["paged_packed_attention"] == 1
 
 
-def _shard_inputs(dev):
+def _shard_inputs(dev, bs=16, f32=False):
     """A mixed step of 3 slots over a pool cut into 4 shards: a long
     cache, one with unassigned entries, one with nothing valid."""
     rng = np.random.default_rng(11)
-    b, sq, h, hk, d, bs, nblk, nb = 3, 4, 8, 2, 128, 16, 8, 32
+    b, sq, h, hk, d = 3, 4, 8, 2, 128
+    nblk = 1024 // bs
+    nb = 4 * (-(-b * nblk // 4) + 1)
+    dt = torch.float32 if f32 else torch.bfloat16
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
-        np.float32)).bfloat16().to(dev)
+        np.float32)).to(dev, dt)
     tbl = rng.permutation(nb)[:b * nblk].reshape(b, nblk).astype(np.int32)
-    tbl[1, 6:] = -1
-    vlen = np.array([120, 90, 0], np.int32)
+    tbl[1, -(-500 // bs):] = -1
+    vlen = np.array([700, 500, 0], np.int32)
     i32 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return (f(b, sq, h, d), f(nb, bs, hk, d), f(nb, bs, hk, d), i32(tbl),
             i32(vlen), i32(np.maximum(vlen - sq, 0)))
@@ -223,9 +303,11 @@ def _partials_close(got, want):
     assert ((o - ro).abs() <= rl[..., None] * 1e-4).all()
 
 
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_partials_kernel_close_to_plain(dev, causal):
-    q, k, v, tbl, vlen, qoff = _shard_inputs(dev)
+def test_partials_kernel_close_to_plain(dev, causal, bs, f32):
+    q, k, v, tbl, vlen, qoff = _shard_inputs(dev, bs, f32)
     n, nb_loc = 4, k.shape[0] // 4
     reset_launch_counts()
     for shard in range(n):
@@ -243,9 +325,10 @@ def test_partials_kernel_close_to_plain(dev, causal):
     assert launch_counts()["paged_attention_partials"] == n
 
 
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_stacked_shard_merge_close_to_unsharded_kernel(dev, causal):
-    q, k, v, tbl, vlen, qoff = _shard_inputs(dev)
+def test_stacked_shard_merge_close_to_unsharded_kernel(dev, causal, bs):
+    q, k, v, tbl, vlen, qoff = _shard_inputs(dev, bs)
     n, nb_loc = 4, k.shape[0] // 4
     qo = qoff if causal else None
     parts = [da.paged_shard_partial(
@@ -299,6 +382,9 @@ def test_partials_wrapper_rejects_bad_input(dev):
     (1, 33, 33, 4, 4, 32, True),
     (1, 17, 70, 4, 1, 64, False),     # both dims ragged against the tiles
     (2, 24, 48, 8, 4, 16, False),
+    (1, 150, 150, 4, 2, 128, True),   # 3 query and key tiles, ragged
+    (1, 70, 200, 8, 2, 128, False),   # Sk not a multiple of 64
+    (1, 9, 130, 4, 4, 80, False),     # D padded to 128
 ])
 def test_flash_kernel_close_to_plain(dev, dtype, b, sq, sk, h, hk, d,
                                      causal):

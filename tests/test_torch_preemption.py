@@ -28,7 +28,7 @@ from repro.sim.chip import HOST_LINK_BW, PEAK_FLOPS  # noqa: E402
 
 from repro_torch.serve import metrics  # noqa: E402
 from repro_torch.serve.engine import (Request, ServeEngine,  # noqa: E402
-                                      fetch_kv_blocks)
+                                      fetch_kv_blocks, write_kv_blocks)
 
 MAX_LEN, BS, SLOTS, CHUNK = 32, 8, 2, 8
 FLOOR = MAX_LEN // BS + 1                 # one full sequence + a spare
@@ -106,6 +106,35 @@ def test_small_pool_tokens_match_full_pool(kv, preempt, reuse, packed):
 
 
 @pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_write_kv_blocks_restores_blocks_in_one_copy(kv):
+    """Blocks fetched to the host go back, several at once and to other
+    physical blocks, byte for byte (K, V and any int8 scales)."""
+    _, _, cfg, tp = _model(kv)
+    eng = ServeEngine(tp, cfg, batch_slots=1, max_len=MAX_LEN, chunk=CHUNK,
+                      block_size=BS, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    for layer in eng.caches:
+        for t in layer.values():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen))
+    saved = fetch_kv_blocks(eng.caches, [1, 3])
+    split = {}
+    assert fetch_kv_blocks(eng.caches, [1], split) and not split  # CPU
+    per_block = [{k: t[:, i] for k, t in saved.items()} for i in range(2)]
+    assert write_kv_blocks(eng.caches, [], []) == 0
+    n = write_kv_blocks(eng.caches, [4, 2], per_block)
+    assert n == sum(t.numel() * t.element_size() for t in saved.values())
+    back = fetch_kv_blocks(eng.caches, [4, 2])
+    for key, t in saved.items():
+        assert torch.equal(back[key], t)
+    untouched = fetch_kv_blocks(eng.caches, [1, 3])
+    for key, t in saved.items():
+        assert torch.equal(untouched[key], t)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
 def test_swap_in_restores_kv_bytes(kv):
     """Swap a mid-prefill slot out, resume it, and compare the restored
     pool blocks (K, V and any int8 scales) with what was resident."""
@@ -132,6 +161,7 @@ def test_swap_in_restores_kv_bytes(kv):
     eng.step()                       # re-admits and swaps back in
     st = eng.stats()
     assert st["swapped_in_blocks"] == 2 and st["recompute_tokens"] == 0
+    assert eng.swap_h2d_copies == 1          # both blocks in one copy
     restored = fetch_kv_blocks(eng.caches, eng.block_tables[0, :2])
     for key, t in saved.items():
         assert torch.equal(restored[key], t)
