@@ -5,6 +5,8 @@ Run from the repository root on a machine with one CUDA card::
 
     python3 chip_smoke.py   # build, kernel phases, sharded and flash
                             # attention, engine runs
+    python3 chip_smoke.py --ab PARENT   # A/B against the checkout PARENT:
+                            # flash phase + policy B, in turns
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -22,7 +24,10 @@ Phases (any failure exits non-zero; nothing is caught):
    events over back-to-back wrapper calls (``ms``) and by
    torch.profiler (``device_ms``, the kernels alone), beside the plain
    version, the work's bound on the card and, where one PyTorch call
-   computes the same function, that call;
+   computes the same function, that call; the TiM lines name the kernel
+   that served (``tim_path``: the s8 tensor-core ``tc`` kernel for the
+   single-phase dense cases without ``n_max``, ``dp4a`` otherwise) and
+   the tc kernel's K slices;
 4. sharded attention (``repro_torch.distrib.decode_attn``, the
    compacted-partials kernel) over a bf16 pool of 262,144 blocks of 16
    (chatglm3-6b attention: H=32, Hk=2, D=128) cut into n = 4 contiguous
@@ -44,16 +49,20 @@ Phases (any failure exits non-zero; nothing is caught):
 5. flash attention (``repro_torch.kernels.flash_attention``): causal at
    B=1, Sq=Sk=8192 (chatglm3-6b's ``seq_length``), H=32, Hk=2, D=128,
    bf16 and f32, and bidirectional at Sq=1000, Sk=8000, through the
-   entry point with the counters set to 0 before and read after, each
-   held against the plain scan (the attention tolerance); the kernel,
-   plain and SDPA (``enable_gqa``) timed;
+   entry point with the counters set to 0 before and read after (every
+   launch on the kernel ``flash_path`` names: ``wgmma`` for the bf16
+   cases, ``fma`` for f32), each held against the plain scan (the
+   attention tolerance); the kernel, plain and SDPA (``enable_gqa``)
+   timed, and the wgmma kernel also with P as one bf16 term (its time
+   and error reported, not held to the tolerance);
 6. engine runs: chatglm3-6b at full width (random weights from
    ``--seed``) served through ``ServeEngine`` under four ternary
    policies, each with every launch counter set to 0 before the run and
    read after it; the first step's logits of the kernel route are
    compared with the plain route's (relative L2 <= 0.5, argmax equal
    on >= 3/4 of the slots), and one step is traced with torch.profiler
-   (device time by kernel beside the step's wall time);
+   (device time by kernel beside the step's wall time); under policy B
+   every single-phase launch must have taken the tc kernel;
 7. layout runs under policy D at full depth, on its params and prompts
    with 32 new tokens each (with 16, the 12 requests never hold more
    than 123 blocks, and a pool at the hard floor would not preempt):
@@ -161,6 +170,9 @@ def device_ms(fn, names, iters: int = 10):
 
 
 PAGED_NAMES = ("paged_attn", "paged_merge")
+# tim_single_tc, tim_accumulate, tim_epilogue, and the fill that zeroes
+# the K slices' int32 workspace (torch.zeros: FillFunctor, or a memset)
+TIM_NAMES = ("tim_", "FillFunctor", "Memset")
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -224,8 +236,11 @@ def tim_phase(name, spec, gen, iters):
         if not exact:
             raise AssertionError(f"{name} K={k} N={n} n_max={n_max}: "
                                  f"kernel != plain (max |diff| {err})")
+        path = tk.tim_path(mode, packed, n_max, m, n, k)
         ms = time_ms(lambda: tk.tim_st_launch(x, wd, w1, w2, isc, **kw),
                      iters)
+        dev_ms = device_ms(lambda: tk.tim_st_launch(x, wd, w1, w2, isc,
+                                                    **kw), TIM_NAMES, iters)
         plain_ms = time_ms(lambda: tk.tim_st_plain(x, wd, w1, w2, isc,
                                                    **kw), max(2, iters // 4))
         lib_ms = None
@@ -237,13 +252,16 @@ def tim_phase(name, spec, gen, iters):
         ops = 2.0 * m * n * k * passes * (2 if t_eff else 1)
         nbytes = m * k + wd.numel() + 8 * n + 2 * m * n
         b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-        row = dict(K=k, N=n, n_max=n_max, bit_exact=exact, max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        log(f"[kernel {name}] M={m} K={k} N={n} n_max={n_max} "
-            f"bit_exact={exact} max_abs_err={err} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
+        row = dict(K=k, N=n, n_max=n_max, path=path, bit_exact=exact,
+                   max_abs_err=err, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        splits = tk.tim_tc_splits(m, n, k, tk.sm_count(x.device)) \
+            if path == "tc" else None
+        log(f"[kernel {name}] M={m} K={k} N={n} n_max={n_max} path={path} "
+            f"splits={splits} bit_exact={exact} max_abs_err={err} "
+            f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})")
         rows.append(row)
         del x, w, wp, wd, out, ref
     return rows
@@ -750,12 +768,16 @@ def flash_phase(gen, iters):
         q = torch.randn((1, sq, h, d), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((1, sk, hk, d), generator=gen, device="cuda"
                             ).to(dt) for _ in range(2))
+        path = fk.flash_path(dt, d)
         reset_launch_counts()
         out = fk.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        n = launch_counts()["flash_attention"]
-        if n <= 0:
-            raise AssertionError(f"flash {label}: the kernel never launched")
+        counts = launch_counts()
+        n = counts["flash_attention"]
+        if n <= 0 or counts[f"flash_{path}"] != n:
+            raise AssertionError(f"flash {label}: {n} launches, "
+                                 f"{counts[f'flash_{path}']} of them on the "
+                                 f"{path} kernel")
         launches += n
         ref = fk.flash_attention_plain(q, k, v, causal=causal)
         err, ok = attn_close(out, ref)
@@ -781,8 +803,8 @@ def flash_phase(gen, iters):
                            F32_FLOPS_PER_S if dt == torch.float32
                            else BF16_FLOPS_PER_S)
         log(f"[kernel flash_attention {label}] B=1 Sq={sq} Sk={sk} H={h} "
-            f"Hk={hk} D={d} {str(dt)[6:]} max_abs_err={err} ms={ms:.4f} "
-            f"device_ms={dev_ms} "
+            f"Hk={hk} D={d} {str(dt)[6:]} path={path} max_abs_err={err} "
+            f"ms={ms:.4f} device_ms={dev_ms} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
             f"bound_ms={b_ms:.5f} ({b_by})")
         if label == "causal":
@@ -956,6 +978,11 @@ def engine_run(label, pol, layers, seed, keep=False):
     if missing:
         raise AssertionError(f"policy {label}: kernels never launched on "
                              f"the served path: {missing}")
+    if "tim_single" in need and counts["tim_single_tc"] != \
+            counts["tim_single"]:
+        raise AssertionError(f"policy {label}: {counts['tim_single']} "
+                             f"single-phase launches, only "
+                             f"{counts['tim_single_tc']} on the tc path")
     if st["prefix_hit_tokens"] <= 0 or st["cow_copies"] <= 0:
         raise AssertionError(f"policy {label}: prefix reuse / copy-on-write "
                              f"did not fire: {st}")
@@ -1118,12 +1145,58 @@ def f1_runs(params, cfg, seed, ref):
         raise AssertionError("; ".join(failures))
 
 
+# one turn of the A/B: the flash phase and policy B's engine run of the
+# tree's own chip_smoke.py, in a process of its own.  It calls that
+# tree's flash_phase(gen, iters), engine_run(label, policy, layers, seed)
+# and POLICIES, so the other checkout must have them with these
+# signatures
+AB_TURN = """
+import sys
+tree, iters, layers, seed = sys.argv[1], *map(int, sys.argv[2:5])
+sys.path.insert(0, tree)
+import chip_smoke as cs
+import torch
+from repro_torch.kernels import _build
+_build.build_all()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.flash_phase(torch.Generator(device="cuda").manual_seed(seed), iters)
+cs.engine_run("B", cs.POLICIES["B"], layers, seed)
+"""
+
+
+def ab_runs(parent: str, args) -> None:
+    """Another checkout (``parent``) and this one in turns: parent,
+    change, change, parent; each turn prints its flash and policy-B
+    lines with an ``[ab <turn> <tree>]`` prefix."""
+    turns = [("parent", parent), ("change", HERE), ("change", HERE),
+             ("parent", parent)]
+    for i, (label, tree) in enumerate(turns):
+        tree = os.path.abspath(tree)
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_TURN, tree, str(args.iters),
+             str(args.layers), str(args.seed)],
+            capture_output=True, text=True, cwd=tree)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[kernel flash", "[run B", "[engine B",
+                                "[profile B")):
+                log(f"[ab {i} {label}] {line}")
+        if proc.returncode != 0:
+            log(proc.stdout[-2000:] + proc.stderr[-4000:])
+            raise RuntimeError(f"A/B turn {i} ({label}) failed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=28,
                     help="depth of every engine run (full: 28)")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="instead of the smoke run: the flash phase and "
+                         "policy B's engine run of the checkout PARENT and "
+                         "of this one, in turns (parent, change, change, "
+                         "parent)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1138,6 +1211,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     log(card)
+    if args.ab:
+        ab_runs(args.ab, args)
+        return 0
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()

@@ -18,29 +18,54 @@
 // keeps (~0.55 TFLOP at causal 8192, H = 32), against ~0.1 GB of q, k,
 // v and out: far above the card's balance point, so the flops belong on
 // the tensor cores (f32 FMAs on the CUDA cores run ~15x below their
-// bf16 rate).
+// bf16 rate), and at the full bf16 rate only through wgmma.
 //
-// Design (flash_attn_kernel, bf16 with D % 16 == 0 and D <= 128): one
-// block of 4 warps per (b, h, 64 query rows), 16 rows a warp.  K/V
-// tiles of 64 keys stay bf16 in shared memory, filled by cp.async 16
-// bytes a thread into a ring of 2 stages (the next tile loads while the
-// current one computes), chunks XOR-swizzled; ldmatrix feeds bf16
-// mma.sync m16n8k16 with f32 accumulators for S = Q K^T (Q fragments
-// held in registers) and for O += P V.  P goes in as two bf16 terms
-// (hi = bf16(p), lo = bf16(p - hi)), two MMAs a step: one bf16 rounding
-// of p puts early causal rows, which average a few keys, 2 bf16 ulps off
-// the plain version at causal 8192 (max |diff| 0.0078 against the bar
-// 2^-7 |ref| + 2e-3); the pair carries ~16 bits of p.  This changes
-// rounding, not the function; the plain version beside the wrapper is
-// the reference for the tolerance.  A causal block stops at
-// its last row's tile, and a warp skips a tile past its own last row
-// (an exact no-op of the update).  The blocks of the longest causal
-// walks are launched first.
+// Three kernels; the caller names one (flash_attention_launch's `path`,
+// chosen by kernels/flash_attention.flash_path from dtype and D) and the
+// launcher refuses a shape that kernel does not take:
 //
-// f32 (and a head size the tensor path does not take) keeps
-// flash_attn_fma_kernel: f32 FMAs on the CUDA cores, one block of 4
-// warps per (b, h, 16 query rows), lane j computing key j's dot product
-// of a 32-key f32 tile, P.V with lane t owning columns t + 32c.
+// PATH_WGMMA, flash_attn_wgmma_kernel (bf16, D = 64 or 128): one block
+// per (b, h, 128 query rows) of 2 consumer warpgroups (64 rows each) and
+// one producer warp.  The producer's lane 0 loads the block's Q once and
+// keeps a ring of 2 K/V stages of 128 keys full with TMA tensor loads
+// (128-byte swizzle, 64-column boxes, the tails zero-filled by the
+// TMA), each stage's K and V signalled by its own mbarrier and released
+// by an `empty` mbarrier that all 256 consumer threads arrive on.  Each
+// consumer warpgroup computes S = Q K^T (64 x 128 f32) with wgmma from
+// shared memory (both operands K-major), the online softmax in
+// registers, and O += P V with wgmma taking P from registers: the
+// accumulator layout of S is the mma.sync A-fragment layout of each
+// warp's 16 rows, so P needs no trip through shared memory; V is the
+// MN-major (transposed) B operand straight from its TMA tile.  The two
+// warpgroups take turns on the tensor cores (two mbarriers): a turn
+// issues P V of tile t - 1, waits for it, and issues S of tile t; the
+// softmax of t runs while the other warpgroup's turn keeps the tensor
+// cores busy, and one product in flight at a time keeps only O and S
+// (or O and P) in registers (ptxas holds the kernel to 168 a thread).
+// P goes in as two bf16 terms (hi = bf16(p), lo = bf16(p - hi)): one
+// bf16 rounding of p puts early causal rows, which average a few keys,
+// 2 bf16 ulps off the plain version at causal 8192 (max |diff| 0.0078
+// against the bar 2^-7 |ref| + 2e-3); the pair carries ~16 bits of p.
+// This changes rounding, not the function; the plain version beside
+// the wrapper is the reference for the tolerance.
+// A causal block stops at its last row's tile, and the blocks of the
+// longest causal walks are launched first (the query block is the
+// grid's slow axis, counted from the end).
+//
+// PATH_MMA, flash_attn_kernel (bf16, D % 16 == 0, D <= 128; serves the
+// head sizes the wgmma kernel does not take): one block of 4 warps per
+// (b, h, 64 query rows), 16 rows a warp.  K/V tiles of 64 keys stay bf16
+// in shared memory, filled by cp.async 16 bytes a thread into a ring of
+// 2 stages, chunks XOR-swizzled; ldmatrix feeds bf16 mma.sync m16n8k16
+// with f32 accumulators for S = Q K^T (Q fragments held in registers)
+// and for O += P V, P as two bf16 terms as above.  A warp skips a tile
+// past its own last row (an exact no-op of the update).
+//
+// PATH_FMA, flash_attn_fma_kernel (f32, and any other D % 4 == 0 up to
+// 256): f32 FMAs on the CUDA cores, one block of 4 warps per (b, h, 16
+// query rows), lane j computing key j's dot product of a 32-key f32
+// tile, P.V with lane t owning columns t + 32c.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -403,6 +428,308 @@ int go_tc(dim3 grid, cudaStream_t st, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// wgmma kernel (bf16, D = 64 * DH)
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 128;                 // query rows per block
+constexpr int WKEY = 128;               // keys per K/V stage
+constexpr int WST = 2;                  // K/V ring stages
+constexpr int WCONS = 2 * 128;          // consumer threads (2 warpgroups)
+constexpr int WTHREADS = WCONS + 32;    // + the producer warp
+constexpr int HALF_Q = WQ * 128;        // one 64-column half of Q, bytes
+constexpr int HALF_KV = WKEY * 128;     // one 64-column half of a K/V tile
+
+// shared-memory layout (offsets from a 1024-byte aligned base): Q
+// [half][128 rows][64], then K and V [stage][half][128 keys][64], each
+// 128-byte swizzled by the TMA; then the mbarriers q_full, full_k[WST],
+// full_v[WST], empty[WST], turn[2]
+template <int DH>
+struct WgLayout {
+  static constexpr int K = DH * HALF_Q;
+  static constexpr int V = K + WST * DH * HALF_KV;
+  static constexpr int BAR = V + WST * DH * HALF_KV;
+  static constexpr int BYTES = BAR + 8 * (3 + 3 * WST) + 1024;  // + align
+};
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+                        int H, int Hk, float sl2) {
+  using namespace tc;
+  using L = WgLayout<DH>;
+  constexpr int D = 64 * DH;
+  extern __shared__ unsigned char smem_wg[];
+  const uint32_t base = (smem_u32(smem_wg) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t full_k = q_full + 8;        // + 8 * stage
+  const uint32_t full_v = full_k + 8 * WST;  // + 8 * stage
+  const uint32_t empty = full_v + 8 * WST;   // + 8 * stage
+  const uint32_t turn = empty + 8 * WST;     // + 8 * warpgroup
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int hk = h / (H / Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // longest walks first
+  const int kend = CAUSAL ? min(Sk, q0 + WQ) : Sk;
+  const int ntiles = (kend + WKEY - 1) / WKEY;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < WST; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, WCONS);
+    }
+    mbar_init(turn, WCONS / 2);
+    mbar_init(turn + 8, WCONS / 2);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WCONS / 32) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(q_full, DH * HALF_Q);
+      for (int hf = 0; hf < DH; ++hf)
+        tma_load_4d(base + hf * HALF_Q, &tq, q_full, 64 * hf, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % WST;
+        // the stage's previous tile (t - WST) released by every consumer
+        if (t >= WST) mbar_wait(empty + 8 * s, (t / WST - 1) & 1);
+        const uint32_t kb = base + L::K + s * DH * HALF_KV;
+        const uint32_t vb = base + L::V + s * DH * HALF_KV;
+        mbar_expect_tx(full_k + 8 * s, DH * HALF_KV);
+        for (int hf = 0; hf < DH; ++hf)
+          tma_load_4d(kb + hf * HALF_KV, &tk, full_k + 8 * s, 64 * hf, hk,
+                      t * WKEY, b);
+        mbar_expect_tx(full_v + 8 * s, DH * HALF_KV);
+        for (int hf = 0; hf < DH; ++hf)
+          tma_load_4d(vb + hf * HALF_KV, &tv, full_v + 8 * s, 64 * hf, hk,
+                      t * WKEY, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = q0 + 64 * wg + 16 * (warp % 4);  // this warp's first row
+  const uint32_t qa = base + wg * 64 * 128;       // its rows of each half
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  uint32_t pa[2][WKEY / 16][4];  // P of the last tile, hi and lo terms
+
+  // The two warpgroups take turns on the tensor cores (mbarrier turn[w]
+  // completes a phase when all 128 threads of the other one arrive).
+  // Turn t issues P V of tile t - 1, waits for it, then issues S of tile
+  // t; the softmax of t then runs while the other warpgroup's turn keeps
+  // the tensor cores busy.  Every warpgroup walks all ntiles tiles (with
+  // WQ == WKEY == 128 a causal block's last tile reaches into both
+  // warpgroups' rows), so both take ntiles + 1 turns; warpgroup 1 hands
+  // over the first turn, and only warpgroup 0 hands on after its last.
+  mbar_wait(q_full, 0);
+  if (wg == 1) mbar_arrive(turn);
+  for (int t = 0; t <= ntiles; ++t) {
+    mbar_wait(turn + 8 * wg, t & 1);
+    if (t > 0) {  // O += P V of tile t - 1
+      const int s = (t - 1) % WST;
+      mbar_wait(full_v + 8 * s, ((t - 1) / WST) & 1);
+      const uint32_t vb = base + L::V + s * DH * HALF_KV;
+      wg_fence();
+#pragma unroll
+      for (int pt = 0; pt < 2; ++pt) {
+#pragma unroll
+        for (int kk = 0; kk < WKEY / 16; ++kk) {
+          const uint64_t dv = wg_desc(vb + kk * 16 * 128, HALF_KV, 1024);
+          if constexpr (DH == 2)
+            wgmma_rs_n128_t(o, pa[pt][kk], dv);
+          else
+            wgmma_rs_n64_t(o, pa[pt][kk], dv);
+        }
+      }
+      wg_commit();
+      wg_wait<0>();
+      wg_pin<D / 2>(o);
+      wg_pin<2 * WKEY / 4>(&pa[0][0][0]);
+      mbar_arrive(empty + 8 * s);
+    }
+    if (t == ntiles) {
+      if (wg == 0) mbar_arrive(turn + 8);
+      break;
+    }
+    // S = Q K^T of tile t
+    const int s = t % WST, k0 = t * WKEY;
+    mbar_wait(full_k + 8 * s, (t / WST) & 1);
+    const uint32_t kb = base + L::K + s * DH * HALF_KV;
+    float sc[WKEY / 2];
+#pragma unroll
+    for (int i = 0; i < WKEY / 2; ++i) sc[i] = 0.0f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks % 4) * 32;  // 16 columns = 32 bytes
+      wgmma_ss_n128(sc, wg_desc(qa + (ks / 4) * HALF_Q + off, 16, 1024),
+                    wg_desc(kb + (ks / 4) * HALF_KV + off, 16, 1024),
+                    ks > 0);
+    }
+    wg_commit();
+    mbar_arrive(turn + 8 * (1 - wg));
+    wg_wait<0>();
+    wg_pin<WKEY / 2>(sc);
+
+    // the online softmax; a tile below the diagonal and inside Sk needs
+    // no mask
+    const bool masked = (CAUSAL && k0 + WKEY - 1 > rw) || k0 + WKEY > Sk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = rw + g + 8 * i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < WKEY / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[4 * j + 2 * i + e] * sl2;
+          if (masked) {
+            const int kp = k0 + 8 * j + 2 * t4 + e;
+            if (kp >= Sk || (CAUSAL && kp > row)) x = NEG_INF;
+          }
+          sc[4 * j + 2 * i + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mj = fmaxf(m[i], mx);
+      const float ms = fmaxf(mj, -1e29f);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < WKEY / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(sc[4 * j + 2 * i + e] - ms);
+          sc[4 * j + 2 * i + e] = p;
+          rs += p;
+        }
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      const float corr = ex2(fminf(m[i] - ms, 0.0f));
+      l[i] = l[i] * corr + rs;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= corr;
+        o[4 * j + 2 * i + 1] *= corr;
+      }
+      m[i] = mj;
+    }
+    // P as A fragments: keys 16kk.. of rows g / g + 8 are
+    // sc[8kk .. 8kk + 7], in the order a0..a3 wants
+#pragma unroll
+    for (int kk = 0; kk < WKEY / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pa[0][kk][r],
+               pa[1][kk][r]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + g + 8 * i;
+    if (row >= Sq) continue;  // the query tail
+    const float inv = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] / inv,
+                                o[4 * j + 2 * i + 1] / inv);
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
+// query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled",
+                                     reinterpret_cast<void**>(&fn), 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                            reinterpret_cast<void**>(&fn), cudaEnableDefault,
+                            &found);
+#endif
+    if (found != cudaDriverEntryPointSuccess) fn = nullptr;
+  }
+  return fn;
+}
+
+// a bf16 (B, S, heads, D) tensor as a 4-d map, boxes of 64 columns x
+// `rows` positions of one head, 128-byte swizzled; positions past S read
+// as zeros
+bool tensor_map(CUtensorMap* map, const void* p, int B, int S, int heads,
+                int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH, bool CAUSAL>
+int go_wg(const CUtensorMap& tq, const CUtensorMap& tk,
+          const CUtensorMap& tv, void* out, int B, int Sq, int Sk, int H,
+          int Hk, float sl2, cudaStream_t st) {
+  auto kern = flash_attn_wgmma_kernel<DH, CAUSAL>;
+  constexpr int smem = WgLayout<DH>::BYTES;
+  static bool opted_in = false;  // above 48 KB: once per instantiation
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const dim3 grid(B * H, (Sq + WQ - 1) / WQ);
+  kern<<<grid, WTHREADS, smem, st>>>(tq, tk, tv,
+                                     static_cast<__nv_bfloat16*>(out), Sq,
+                                     Sk, H, Hk, sl2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int go_wg_dh(bool causal, const CUtensorMap& tq, const CUtensorMap& tk,
+             const CUtensorMap& tv, void* out, int B, int Sq, int Sk, int H,
+             int Hk, float sl2, cudaStream_t st) {
+  return causal ? go_wg<DH, true>(tq, tk, tv, out, B, Sq, Sk, H, Hk, sl2, st)
+                : go_wg<DH, false>(tq, tk, tv, out, B, Sq, Sk, H, Hk, sl2,
+                                   st);
+}
+
 template <typename T, int DPL, bool CAUSAL>
 int go(dim3 grid, size_t smem, cudaStream_t st, const void* q,
        const void* k, const void* v, void* out, int Sq, int Sk, int H,
@@ -449,23 +776,44 @@ int go_dpl(bool causal, dim3 grid, size_t smem, cudaStream_t st,
                          Hk, D, qscale);
 }
 
+enum { PATH_FMA = 0, PATH_MMA = 1, PATH_WGMMA = 2 };
+
 }  // namespace
 
-// Shapes as in the header; D % 4 == 0 and D <= 256, H % Hk == 0,
-// B * H <= 65535, Sq, Sk >= 1; bf16 = 1 for bf16 tensors, 0 for f32.
-// bf16 with D % 16 == 0 and D <= 128 runs the tensor-core kernel.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a shape the kernel does not take).
+// Shapes as in the header; D % 4 == 0 and D <= 256, H % Hk == 0, B >= 1,
+// Sq, Sk >= 1; bf16 = 1 for bf16 tensors, 0 for f32.  `path` names the
+// kernel (PATH_WGMMA: bf16, D = 64 or 128, Sq / 128 <= 65535;
+// PATH_MMA: bf16, D % 16 == 0, D <= 128, B * H <= 65535; PATH_FMA:
+// B * H <= 65535).  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape the named kernel does not take (or a
+// tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Sk, int H, int Hk, int D,
                                       int causal, int bf16, float qscale,
-                                      void* stream) {
+                                      int path, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (D < 4 || D > 256 || D % 4 != 0 || Hk < 1 || H % Hk != 0 || B < 1 ||
-      Sq < 1 || Sk < 1 || (long long)B * H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+      Sq < 1 || Sk < 1)
+    return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && D % 16 == 0 && D <= 128) {
+  if (path == PATH_WGMMA) {
+    if (!bf16 || (D != 64 && D != 128) || (Sq + WQ - 1) / WQ > 65535)
+      return bad;
+    CUtensorMap tq, tk, tv;
+    if (!tensor_map(&tq, q, B, Sq, H, D, WQ) ||
+        !tensor_map(&tk, k, B, Sk, Hk, D, WKEY) ||
+        !tensor_map(&tv, v, B, Sk, Hk, D, WKEY))
+      return bad;
+    const float sl2 = qscale * 1.4426950408889634f;
+    return D == 64 ? go_wg_dh<1>(causal, tq, tk, tv, out, B, Sq, Sk, H, Hk,
+                                 sl2, st)
+                   : go_wg_dh<2>(causal, tq, tk, tv, out, B, Sq, Sk, H, Hk,
+                                 sl2, st);
+  }
+  if ((long long)B * H > 65535) return bad;
+  if (path == PATH_MMA) {
+    if (!bf16 || D % 16 != 0 || D > 128) return bad;
     const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     if (D <= 64)
       return causal ? go_tc<64, true>(grid, st, q, k, v, out, Sq, Sk, H, Hk,
@@ -477,6 +825,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                   : go_tc<128, false>(grid, st, q, k, v, out, Sq, Sk, H, Hk,
                                       D, qscale);
   }
+  if (path != PATH_FMA) return bad;
   const dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
   const size_t smem = sizeof(float) * (ROWS * D + BK * (D + 4) + BK * D);
   return bf16 ? go_dpl<__nv_bfloat16>(causal, grid, smem, st, q, k, v, out,

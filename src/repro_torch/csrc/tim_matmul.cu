@@ -1,7 +1,8 @@
 // TiM ternary matmul for Hopper (sm_90a): one templated kernel for the
 // single-phase, two-phase and bit-serial products, over dense int8 or
 // 2-bit packed ternary weights, with the optional per-L=16-block ADC
-// clamp (n_max).
+// clamp (n_max); and an s8 tensor-core kernel for the single-phase
+// product of dense int8 weights without the clamp.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tim_matmul.py:
 //   tim_matmul_pallas                   (_tim_kernel, dense)
@@ -21,31 +22,50 @@
 // Under n_max the (n, k) = ((T+S)/2, (T-S)/2) counts of each 16-row
 // block are clamped at n_max before accumulating (T is always kept).
 //
-// Design: two launches.  Pass 1: a 64x64 output tile per block of 256
-// threads, each thread 4x4 outputs, over one slice of K (the TPU grid's
-// sequential K axis and its VMEM accumulators become a loop over
-// register accumulators; K is split across blocks until the grid holds
-// ~4 blocks per SM, since M = 128 rows alone give 2 row tiles), the
-// slices' int32 sums added into a workspace with integer atomics
-// (exact, order-free).  Pass 2: the f32 epilogue, one thread per
-// output.  X and
-// W tiles (64 K-codes each) are staged in shared memory, W transposed
-// so 4 consecutive K codes of a column are one 32-bit word; packed
-// weights are unpacked to int8 as the tile lands.  Products are
-// __dp4a (4 int8 MACs per instruction); phase masks, |x|, |W| and bit
-// planes are per-byte SIMD ops on the 32-bit words.
-//
 // Bound: at the serving shape (M = 128 rows) the weight bytes dominate
 // the traffic, so the card's bound is memory (a packed 4096x13696
-// weight is 14 MB, ~4 us at 3.35 TB/s; int8 ~17 us).  This first
-// kernel is limited by dp4a issue rate instead (no tensor cores, W
-// re-read once per 64-row tile); the f32 epilogue uses __fmul_rn /
-// __fadd_rn in the plain version's order so the two agree bit for bit.
+// weight is 14 MB, ~4 us at 3.35 TB/s; int8 ~17 us).  Both kernels
+// evaluate the f32 epilogue with __fmul_rn / __fadd_rn in the plain
+// version's order, so kernel and plain version agree bit for bit.
+//
+// tim_single_tc (tim_single_tc_launch; single-phase, dense int8 W, no
+// clamp, K % 16 == 0, N % 16 == 0): one block of 8 warps per 128
+// columns and 128 rows (all of M <= 128, so each W tile leaves HBM once)
+// over a range of K.  A ring of 4 stages of 128 K codes (x 128 x 128,
+// W 128 x 128 bytes) is filled by 16-byte cp.async copies.  s8 mma.sync
+// m16n8k32 (s32 accumulators, exact) wants both operands K-major, and W
+// is stored N-major: ldmatrix.trans of b16 pairs of W bytes, with the
+// lanes' row addresses picking K rows {0,1,4,5,..} and {2,3,6,7,..},
+// hands each thread two K-pairs of two adjacent columns, and two
+// __byte_perm turn them into the B fragments of an even and an odd
+// column (a 4 x 4 byte transpose in registers; the W tile's 16-byte
+// chunks are XOR-swizzled by those K rows, so the loads are free of
+// bank conflicts).  T takes |x| and |W| of the same fragments.  Where
+// the grid of column tiles fills the card (the caller's `splits` = 1),
+// the epilogue runs on the accumulators and writes out directly;
+// otherwise K is cut into `splits` slices whose int32 sums go into a
+// zeroed workspace by integer atomics (exact, order-free), and
+// tim_epilogue finishes.
+//
+// tim_accumulate + tim_epilogue (everything else): two launches.  Pass
+// 1: a 64x64 output tile per block of 256 threads, each thread 4x4
+// outputs, over one slice of K (the TPU grid's sequential K axis and
+// its VMEM accumulators become a loop over register accumulators; K is
+// split across blocks until the grid holds ~4 blocks per SM, since M =
+// 128 rows alone give 2 row tiles), the slices' int32 sums added into a
+// workspace with integer atomics.  Pass 2: the f32 epilogue, one thread
+// per output.  X and W tiles (64 K-codes each) are staged in shared
+// memory, W transposed so 4 consecutive K codes of a column are one
+// 32-bit word; packed weights are unpacked to int8 as the tile lands.
+// Products are __dp4a (4 int8 MACs per instruction); phase masks, |x|,
+// |W| and bit planes are per-byte SIMD ops on the 32-bit words.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "tc_sm90.cuh"
 
 namespace {
 
@@ -292,13 +312,11 @@ __global__ void tim_epilogue(const int* __restrict__ acc,
   store(out + idx, v);
 }
 
-constexpr int TARGET_BLOCKS = 4 * 132;  // ~4 blocks per H100 SM
-
 struct Args {
   const int8_t* x;
   const uint8_t* w;
   int* acc;
-  int M, N, K, need_t, n_max, bits;
+  int M, N, K, need_t, n_max, bits, sms;
 };
 
 template <int MODE, bool PACKED, bool CLAMP>
@@ -307,7 +325,8 @@ void launch_acc(const Args& a, cudaStream_t st) {
   // 128 x 4096 output is 128 blocks of 8 warps, one per SM
   const int mt = (a.M + BM - 1) / BM, nt = (a.N + BN - 1) / BN;
   const int tiles = (a.K + BK - 1) / BK;
-  int splits = (TARGET_BLOCKS + mt * nt - 1) / (mt * nt);
+  const int target = 4 * a.sms;  // ~4 blocks per SM
+  int splits = (target + mt * nt - 1) / (mt * nt);
   splits = std::max(1, std::min(splits, tiles));
   const int per = (tiles + splits - 1) / splits;
   splits = (tiles + per - 1) / per;
@@ -345,6 +364,246 @@ void launch_mode(const Args& a, bool packed, const float* w1, const float* w2,
         a.acc, w1, w2, iscale, static_cast<float*>(out), a.M, a.N, need_t);
 }
 
+// ---------------------------------------------------------------------------
+// single-phase s8 tensor-core kernel (dense int8 W, no clamp)
+// ---------------------------------------------------------------------------
+
+constexpr int TM = 128;                      // rows per block
+constexpr int TN = 128;                      // columns per block
+constexpr int TK = 128;                      // K codes per stage
+constexpr int TST = 4;                       // cp.async ring stages
+constexpr int TTHREADS = 256;                // 2 x 4 warps of 64 x 32
+constexpr int TSTAGE = TM * TK + TK * TN;    // bytes: x tile, W tile
+constexpr int TSMEM = TST * TSTAGE;
+
+// W tile row k: its 16-byte chunk c sits at c ^ wsw(k), so that the K
+// rows one ldmatrix reads ({0,1,4,5,8,9,12,13} or those + 2) hit 8
+// distinct chunks
+__device__ __forceinline__ int wsw(int k) { return (k & 1) | ((k >> 1) & 6); }
+
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <bool NEED_T, bool SPLIT, typename OutT>
+__global__ void __launch_bounds__(TTHREADS, 1)
+tim_single_tc(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+              const float* __restrict__ w1, const float* __restrict__ w2,
+              const float* __restrict__ iscale, int* __restrict__ acc,
+              OutT* __restrict__ out, int M, int N, int K,
+              int tiles_per_split) {
+  using namespace tc;
+  extern __shared__ __align__(128) unsigned char smem_t[];
+  const uint32_t base = smem_u32(smem_t);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int kt0 = blockIdx.z * tiles_per_split;
+  const int ktiles = min(tiles_per_split, (K + TK - 1) / TK - kt0);
+
+  // Rows of x past M and columns of W past N are left unloaded: a row
+  // (column) of the products depends only on its own row (column) of x
+  // (W), and those outputs are not stored.  x past K is zero-filled,
+  // which zeroes every product term past K whatever W holds there.
+  auto load = [&](int kt, int stage) {
+    const int k0 = (kt0 + kt) * TK;
+    const uint32_t xs = base + stage * TSTAGE, ws = xs + TM * TK;
+    for (int u = tid; u < TM * TK / 16; u += TTHREADS) {
+      const int r = u / (TK / 16), c = u % (TK / 16);
+      const int m = m0 + r, k = k0 + 16 * c;
+      if (m < M)
+        cp16(xs + r * TK + ((c ^ (r & 7)) << 4),
+             x + (size_t)m * K + min(k, K - 16), k < K ? 16 : 0);
+    }
+    for (int u = tid; u < TK * TN / 16; u += TTHREADS) {
+      const int kk = u / (TN / 16), c = u % (TN / 16);
+      const int k = k0 + kk, n = n0 + 16 * c;
+      if (k < K && n < N)
+        cp16(ws + kk * TN + ((c ^ wsw(kk)) << 4), w + (size_t)k * N + n,
+             16);
+    }
+  };
+
+  // [m16 tile][16-column chunk][even/odd columns][fragment]
+  int s_acc[4][2][2][4], t_acc[NEED_T ? 4 : 1][2][2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s_acc[i][h][p][e] = 0;
+          if (NEED_T) t_acc[NEED_T ? i : 0][h][p][e] = 0;
+        }
+
+#pragma unroll
+  for (int i = 0; i < TST - 1; ++i) {
+    if (i < ktiles) load(i, i);
+    cp_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_wait<TST - 2>();
+    __syncthreads();  // tile kt landed; the stage of kt - 1 is free
+    if (kt + TST - 1 < ktiles) load(kt + TST - 1, (kt + TST - 1) % TST);
+    cp_commit();
+    const uint32_t xs = base + (kt % TST) * TSTAGE, ws = xs + TM * TK;
+#pragma unroll
+    for (int ks = 0; ks < TK / 32; ++ks) {
+      // B fragments of this warp's 32 columns: chunk h holds columns
+      // 16h + 2g (even) and 16h + 2g + 1 (odd) of thread (g, t)
+      uint32_t bf[2][2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 2 * wn + h, i = lane >> 3, r = lane & 7;
+        const int kk =
+            ks * 32 + 16 * (i >> 1) + 2 * (i & 1) + (r & 1) + 4 * (r >> 1);
+        uint32_t r0, r1, r2, r3;
+        ldsm_x4_t(ws + kk * TN + ((c ^ wsw(kk)) << 4), r0, r1, r2, r3);
+        bf[h][0][0] = __byte_perm(r0, r1, 0x6420);
+        bf[h][0][1] = __byte_perm(r2, r3, 0x6420);
+        bf[h][1][0] = __byte_perm(r0, r1, 0x7531);
+        bf[h][1][1] = __byte_perm(r2, r3, 0x7531);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int row0 = 64 * wm + 16 * mt;
+        if (m0 + row0 >= M) continue;  // warp-uniform: rows not stored
+        uint32_t a[4];
+        const int r = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+        const int c = 2 * ks + (lane >> 4);
+        ldsm_x4(xs + r * TK + ((c ^ (r & 7)) << 4), a[0], a[1], a[2], a[3]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            mma16832_s8(s_acc[mt][h][p], a, bf[h][p][0], bf[h][p][1]);
+        if (NEED_T) {
+          uint32_t aa[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) aa[e] = vabs(a[e]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+              mma16832_s8(t_acc[NEED_T ? mt : 0][h][p], aa,
+                          vabs(bf[h][p][0]), vabs(bf[h][p][1]));
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // thread (g, t) holds rows g and g + 8 of each m16 tile, at columns
+  // 4t .. 4t + 3 of each 16-column chunk: (even c0, odd c0, even c1,
+  // odd c1) for row g, (even c2, odd c2, even c3, odd c3) for row g + 8
+  const int g = lane >> 2, t = lane & 3;
+  const float scale = SPLIT ? 0.0f : iscale[0];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + 32 * wn + 16 * h + 4 * t;
+    if (n >= N) continue;  // N % 16 == 0: all 4 columns in or out
+    float cs[4] = {0, 0, 0, 0}, ct[4] = {0, 0, 0, 0};
+    if (!SPLIT) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a = w1[n + j], b = w2[n + j];
+        cs[j] = __fmul_rn(__fadd_rn(a, b), 0.5f);
+        ct[j] = __fmul_rn(__fsub_rn(a, b), 0.5f);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + 64 * wm + 16 * mt + g + 8 * i;
+        if (m >= M) continue;
+        const int sv[4] = {s_acc[mt][h][0][2 * i], s_acc[mt][h][1][2 * i],
+                           s_acc[mt][h][0][2 * i + 1],
+                           s_acc[mt][h][1][2 * i + 1]};
+        int tv[4] = {0, 0, 0, 0};
+        if (NEED_T) {
+          const int q = NEED_T ? mt : 0;
+          tv[0] = t_acc[q][h][0][2 * i];
+          tv[1] = t_acc[q][h][1][2 * i];
+          tv[2] = t_acc[q][h][0][2 * i + 1];
+          tv[3] = t_acc[q][h][1][2 * i + 1];
+        }
+        const size_t idx = (size_t)m * N + n;
+        if (SPLIT) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            atomicAdd(acc + idx + j, sv[j]);
+            if (NEED_T) atomicAdd(acc + (size_t)M * N + idx + j, tv[j]);
+          }
+        } else {
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = epilogue(sv[j], tv[j], cs[j], ct[j], NEED_T, scale);
+          store4(out + idx, v);
+        }
+      }
+    }
+  }
+}
+
+template <bool NEED_T, bool SPLIT, typename OutT>
+int go_tc(const int8_t* x, const int8_t* w, const float* w1, const float* w2,
+          const float* iscale, int* acc, void* out, int M, int N, int K,
+          int splits, cudaStream_t st) {
+  auto kern = tim_single_tc<NEED_T, SPLIT, OutT>;
+  static bool opted_in = false;  // above 48 KB: once per instantiation
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TSMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const int ktiles = (K + TK - 1) / TK;
+  const int per = (ktiles + splits - 1) / splits;
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM,
+                  (ktiles + per - 1) / per);
+  kern<<<grid, TTHREADS, TSMEM, st>>>(x, w, w1, w2, iscale, acc,
+                                      static_cast<OutT*>(out), M, N, K, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool NEED_T>
+int go_tc_out(const int8_t* x, const int8_t* w, const float* w1,
+              const float* w2, const float* iscale, int* acc, void* out,
+              int M, int N, int K, int splits, bool out_bf16,
+              cudaStream_t st) {
+  if (splits > 1) {
+    const int e = go_tc<NEED_T, true, float>(x, w, w1, w2, iscale, acc, out,
+                                             M, N, K, splits, st);
+    if (e != 0) return e;
+    const size_t total = (size_t)M * N;
+    const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+    if (out_bf16)
+      tim_epilogue<MODE_SINGLE, __nv_bfloat16><<<blocks, 256, 0, st>>>(
+          acc, w1, w2, iscale, static_cast<__nv_bfloat16*>(out), M, N,
+          NEED_T);
+    else
+      tim_epilogue<MODE_SINGLE, float><<<blocks, 256, 0, st>>>(
+          acc, w1, w2, iscale, static_cast<float*>(out), M, N, NEED_T);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return out_bf16 ? go_tc<NEED_T, false, __nv_bfloat16>(
+                        x, w, w1, w2, iscale, acc, out, M, N, K, 1, st)
+                  : go_tc<NEED_T, false, float>(x, w, w1, w2, iscale, acc,
+                                                out, M, N, K, 1, st);
+}
+
 }  // namespace
 
 // x: (M, K) int8; w: (K, N) int8, or (K/4, N) uint8 when packed (K is
@@ -352,16 +611,17 @@ void launch_mode(const Args& a, bool packed, const float* w1, const float* w2,
 // or [i1, i2]; acc: a zeroed int32 workspace of (S, T) planes — one S
 // plane per accumulator (2 for the two-phase mode), then as many T
 // planes when T is kept (need_t, or any n_max) — each M x N; out:
-// (M, N) bf16 or f32.  n_max < 0 means no clamp.  Returns
+// (M, N) bf16 or f32.  n_max < 0 means no clamp.  sms: the card's
+// streaming multiprocessors, which K is split to fill.  Returns
 // cudaGetLastError() after the two launches.
 extern "C" int tim_matmul_launch(const void* x, const void* w,
                                  const void* w1, const void* w2,
                                  const void* iscale, void* acc, void* out,
                                  int M, int N, int K, int mode, int packed,
                                  int need_t, int n_max, int bits,
-                                 int out_bf16, void* stream) {
+                                 int out_bf16, int sms, void* stream) {
   Args a{static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w),
-         static_cast<int*>(acc), M, N, K, need_t, n_max, bits};
+         static_cast<int*>(acc), M, N, K, need_t, n_max, bits, sms};
   auto* f1 = static_cast<const float*>(w1);
   auto* f2 = static_cast<const float*>(w2);
   auto* is = static_cast<const float*>(iscale);
@@ -380,4 +640,32 @@ extern "C" int tim_matmul_launch(const void* x, const void* w,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The s8 tensor-core single-phase product (tim_single_tc above): x (M,
+// K) int8, w (K, N) int8, K % 16 == 0 and N % 16 == 0, rows 16-byte
+// aligned; splits: the number of K slices (1: the epilogue fused, acc
+// unused; > 1: acc a zeroed int32 workspace of the S plane, then the T
+// plane when need_t, each M x N).  Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int tim_single_tc_launch(const void* x, const void* w,
+                                    const void* w1, const void* w2,
+                                    const void* iscale, void* acc, void* out,
+                                    int M, int N, int K, int need_t,
+                                    int splits, int out_bf16, void* stream) {
+  if (M < 1 || N < 16 || K < 16 || N % 16 != 0 || K % 16 != 0 ||
+      splits < 1 || splits > (K + TK - 1) / TK ||
+      (splits > 1 && acc == nullptr) || (M + TM - 1) / TM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* xs = static_cast<const int8_t*>(x);
+  auto* ws = static_cast<const int8_t*>(w);
+  auto* f1 = static_cast<const float*>(w1);
+  auto* f2 = static_cast<const float*>(w2);
+  auto* is = static_cast<const float*>(iscale);
+  auto* ac = static_cast<int*>(acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return need_t ? go_tc_out<true>(xs, ws, f1, f2, is, ac, out, M, N, K,
+                                  splits, out_bf16, st)
+                : go_tc_out<false>(xs, ws, f1, f2, is, ac, out, M, N, K,
+                                   splits, out_bf16, st);
 }

@@ -1,6 +1,6 @@
 """TiM ternary matmul: Hopper kernel wrappers and their plain versions.
 
-The CUDA kernel (``csrc/tim_matmul.cu``) replaces the reference's four
+The CUDA kernels (``csrc/tim_matmul.cu``) replace the reference's four
 Pallas kernels; each has a wrapper here with the reference's role and a
 launch counter:
 
@@ -12,17 +12,27 @@ launch counter:
   tim_matmul_bitserial  tim_matmul_bitserial_fused_pallas
   ====================  ===========================================
 
-A wrapper launches the kernel for CUDA tensors and runs the plain
-version (``tim_st_plain``, the S/T decomposition written with torch
-ops) for CPU tensors.  The plain version runs on both devices; on the
-card it equals the kernel bit for bit: the integer products are exact
-(float32 matmuls while |sum| < 2^24; K * 127 stays far below for every
-served K) and the f32 epilogue is the same sequence of correctly
-rounded operations.
+Two kernels serve CUDA tensors, chosen by ``tim_path`` from the mode,
+packing, clamp and shape alone: ``"tc"``, the s8 tensor-core kernel
+(``tim_single_tc``: single-phase, dense int8 weights, no ``n_max``, K
+and N multiples of 16), counted again in ``tim_single_tc``; and
+``"dp4a"``, the CUDA-core kernel (``tim_accumulate`` + ``tim_epilogue``)
+for everything else.  ``tim_tc_splits`` says how many K slices the tc
+kernel takes: 1 (the epilogue fused, no workspace) where its column
+tiles fill the card.
+
+A wrapper launches a kernel for CUDA tensors and runs the plain version
+(``tim_st_plain``, the S/T decomposition written with torch ops) for CPU
+tensors.  The plain version runs on both devices; on the card it equals
+both kernels bit for bit: the integer products are exact (float32
+matmuls while |sum| < 2^24; K * 127 stays far below for every served K)
+and the f32 epilogue is the same sequence of correctly rounded
+operations.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -36,7 +46,9 @@ MODES = {"single": 0, "phases": 1, "bits": 2}
 
 # launches per kernel (one table row each); reset by the caller
 LAUNCHES = {"tim_single": 0, "tim_single_packed": 0, "tim_two_phase": 0,
-            "tim_bitserial": 0}
+            "tim_bitserial": 0, "tim_single_tc": 0}
+
+TC_TILE = 128      # the tc kernel's rows, columns and K codes per tile
 
 
 # ---------------------------------------------------------------------------
@@ -131,16 +143,48 @@ def tim_st_plain(x: torch.Tensor, w_data: torch.Tensor, w1: torch.Tensor,
 # kernel launch
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
 
 
-def _lib():
-    lib = _build.load("tim_matmul")
-    fn = lib.tim_matmul_launch
+def _lib(name: str = "tim_matmul_launch", argtypes=_ARGTYPES):
+    fn = getattr(_build.load("tim_matmul"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def tim_path(mode: str, packed: bool, n_max: Optional[int], m: int, n: int,
+             k: int) -> str:
+    """The kernel that serves a CUDA call: ``"tc"`` (s8 tensor cores:
+    single-phase, dense int8 weights, no clamp, K and N multiples of 16
+    so that every row is 16-byte aligned) or ``"dp4a"``."""
+    if (mode == "single" and not packed and n_max is None and m >= 1
+            and n >= 16 and k >= 16 and n % 16 == 0 and k % 16 == 0):
+        return "tc"
+    return "dp4a"
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM):
+    both kernels split K to fill them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tim_tc_splits(m: int, n: int, k: int, sms: int) -> int:
+    """K slices of the tc kernel's grid on a card of ``sms`` SMs.  1
+    where the (row, column) tiles alone give at least one block to every
+    other SM: the epilogue is fused and no workspace is zeroed.
+    Otherwise as many slices as keep one wave on the card (at most one
+    per K tile), their int32 sums added into a workspace and finished by
+    the epilogue pass."""
+    tiles = -(-m // TC_TILE) * -(-n // TC_TILE)
+    if 2 * tiles >= sms:
+        return 1
+    return max(1, min(-(-k // TC_TILE), sms // tiles))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None):
@@ -179,6 +223,21 @@ def tim_st_launch(x, w_data, w1, w2, iscale, *, mode: str, packed: bool,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tim_path(mode, packed, n_max, m, n, k) == "tc":
+        if x.data_ptr() % 16 or w_data.data_ptr() % 16:
+            raise ValueError("x / w: the tc kernel needs 16-byte aligned "
+                             "rows")
+        splits = tim_tc_splits(m, n, k, sm_count(x.device))
+        acc = torch.zeros((2 if need_t else 1, m, n), dtype=torch.int32,
+                          device=x.device) if splits > 1 else None
+        err = _lib("tim_single_tc_launch", _TC_ARGTYPES)(
+            x.data_ptr(), w_data.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            iscale.data_ptr(), None if acc is None else acc.data_ptr(),
+            out.data_ptr(), m, n, k, int(need_t), splits,
+            int(out_dtype == torch.bfloat16), stream)
+        _build.check(err, "tim_matmul[single, tc]")
+        return out
     # int32 (S, T) workspace the kernel's K slices add into atomically
     planes = (2 if mode == "phases" else 1) * \
         (2 if need_t or n_max is not None else 1)
@@ -188,17 +247,20 @@ def tim_st_launch(x, w_data, w1, w2, iscale, *, mode: str, packed: bool,
                  out.data_ptr(), m, n, k,
                  MODES[mode], int(packed), int(need_t),
                  -1 if n_max is None else int(n_max), int(bits),
-                 int(out_dtype == torch.bfloat16),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 int(out_dtype == torch.bfloat16), sm_count(x.device),
+                 stream)
     _build.check(err, f"tim_matmul[{mode}]")
     return out
 
 
-def _route(counter: str, x, *args, **kw):
-    if x.is_cuda:
-        LAUNCHES[counter] += 1
-        return tim_st_launch(x, *args, **kw)
-    return tim_st_plain(x, *args, **kw)
+def _route(counter: str, x, w_data, *args, **kw):
+    if not x.is_cuda:
+        return tim_st_plain(x, w_data, *args, **kw)
+    LAUNCHES[counter] += 1
+    if tim_path(kw["mode"], kw["packed"], kw.get("n_max"), x.shape[0],
+                w_data.shape[1], x.shape[1]) == "tc":
+        LAUNCHES[counter + "_tc"] += 1
+    return tim_st_launch(x, w_data, *args, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ scores: |dm| <= 1e-5 * |m| + 1e-5, |dl| and |do| <= 1e-4 * l (each p
 term to ~1e-6, summed over at most l's worth of probability mass);
 merged over shards they agree with the unsharded kernel within the
 attention tolerance.  Flash attention: bf16 as paged attention, f32 to
-2e-5 (relative and absolute).
+2e-5 (relative and absolute).  Each test of the s8 tensor-core TiM
+kernel and the wgmma flash kernel also checks, by the launch counters,
+that the path the dispatch rule names served the call.
 """
 import numpy as np
 import pytest
@@ -80,6 +82,73 @@ def test_tim_wrapper_counts_and_rejects_bad_input(dev):
     with pytest.raises(ValueError):
         tk.tim_st_launch(x, w.t(), s, s, s[:1], mode="single", packed=False,
                          need_t=False)
+
+
+# the s8 tensor-core kernel at its tile edges (128 rows, 128 columns and
+# 128 K codes a tile): (M, K, N, K slices)
+TC_CASES = [
+    (1, 1040, 400, 9),        # one row; N and K not multiples of 128
+    (70, 208, 256, 2),        # N = 256: K split into 2 slices
+    (128, 4096, 256, 32),     # the served K/V projection shape
+    (128, 1040, 8448, 1),     # 66 column tiles: the epilogue fused
+    (70, 4096, 8448, 1),
+    (200, 528, 4224, 1),      # M > 128: two row tiles, fused
+    (128, 13696, 4096, 4),    # the served down projection
+]
+
+
+@pytest.mark.parametrize("need_t", [False, True])
+@pytest.mark.parametrize("m,k,n,splits", TC_CASES)
+def test_tim_tc_kernel_equals_plain(dev, m, k, n, splits, need_t):
+    assert tk.tim_path("single", False, None, m, n, k) == "tc"
+    assert tk.tim_tc_splits(m, n, k, tk.sm_count(dev)) == splits
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    # activation codes over the int8 range (but -128, whose |x| the
+    # kernel saturates), ternary weight codes
+    x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-1, 2, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w1 = torch.rand(n, generator=gen, device=dev)
+    w2 = torch.rand(n, generator=gen, device=dev)
+    i1 = torch.rand((), generator=gen, device=dev)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        reset_launch_counts()
+        out = tk.tim_matmul_single(x, w, w1, w2, i1, packed=False,
+                                   need_t=need_t, out_dtype=out_dtype)
+        counts = launch_counts()
+        assert counts["tim_single"] == counts["tim_single_tc"] == 1
+        ref = tk.tim_st_plain(x, w, w1, w2, i1.reshape(1), mode="single",
+                              packed=False, need_t=need_t,
+                              out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == out_dtype
+        assert torch.equal(out, ref)
+
+
+def test_tim_dp4a_path_serves_what_tc_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randint(-1, 2, (128, 200), generator=gen, device=dev,
+                      dtype=torch.int8)                  # K % 16 != 0
+    w = torch.randint(-1, 2, (200, 256), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(256, generator=gen, device=dev)
+    i1 = torch.ones((), device=dev)
+    for n_max in (None, 8):
+        reset_launch_counts()
+        out = tk.tim_matmul_single(x, w, s, s, i1, packed=False,
+                                   need_t=False, n_max=n_max)
+        assert launch_counts()["tim_single"] == 1
+        assert launch_counts()["tim_single_tc"] == 0
+        ref = tk.tim_st_plain(x, w, s, s, i1.reshape(1), mode="single",
+                              packed=False, need_t=False, n_max=n_max)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    xm = torch.zeros(16 * 16 + 1, dtype=torch.int8, device=dev)[1:]
+    with pytest.raises(ValueError):             # rows not 16-byte aligned
+        tk.tim_st_launch(xm.view(16, 16), w[:16, :16].contiguous(),
+                         s[:16], s[:16], i1.reshape(1), mode="single",
+                         packed=False, need_t=False)
 
 
 KV_MODES = ["bf16", "int8", "f32"]
@@ -420,3 +489,42 @@ def test_flash_wrapper_rejects_bad_input(dev):
                                   k[..., :6].contiguous(),
                                   k[..., :6].contiguous())
     assert launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal", [
+    (1, 128, 128, 2, 2, True),        # one query block, one key tile
+    (2, 200, 200, 4, 2, True),        # ragged against 128 rows and keys
+    (1, 300, 300, 4, 1, True),        # 3 blocks; a K/V ring reused
+    (1, 256, 384, 4, 2, True),        # Sk > Sq, top-left causal
+    (1, 70, 300, 8, 2, False),        # one ragged query block
+    (2, 333, 77, 4, 4, False),        # Sk < one key tile
+    (1, 129, 600, 2, 1, False),       # 5 key tiles, ragged
+])
+def test_flash_wgmma_close_to_plain(dev, d, b, sq, sk, h, hk, causal):
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, torch.bfloat16)
+               for s in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d)))
+    assert fk.flash_path(torch.bfloat16, d) == "wgmma"
+    reset_launch_counts()
+    out = fk.flash_attention(q, k, v, causal=causal)
+    counts = launch_counts()
+    assert counts["flash_attention"] == counts["flash_wgmma"] == 1
+    assert counts["flash_mma"] == counts["flash_fma"] == 0
+    ref = fk.flash_attention_plain(q, k, v, causal=causal, chunk_kv=64)
+    torch.cuda.synchronize()
+    o, r = out.float().cpu(), ref.float().cpu()
+    assert ((o - r).abs() <= r.abs() * 2.0 ** -7 + 2e-3).all()
+
+
+@pytest.mark.parametrize("dtype,d,path", [
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 80, "mma"),
+    (torch.bfloat16, 72, "fma"), (torch.float32, 64, "fma")])
+def test_flash_other_paths_counted(dev, dtype, d, path):
+    q = torch.randn((1, 40, 4, d), device=dev).to(dtype)
+    k = torch.randn((1, 40, 2, d), device=dev).to(dtype)
+    reset_launch_counts()
+    fk.flash_attention(q, k, k, causal=True)
+    counts = launch_counts()
+    assert counts["flash_attention"] == counts[f"flash_{path}"] == 1

@@ -1,0 +1,110 @@
+"""The port's kernel dispatch rules, held on the CPU.
+
+``tim_path`` / ``tim_tc_splits`` (kernels/tim_matmul.py) and
+``flash_path`` (kernels/flash_attention.py) are plain functions of the
+call's mode, types and shapes: which Hopper kernel serves a CUDA call,
+and how the s8 tensor-core TiM kernel cuts K.  The kernels themselves
+run only on the card (tests/test_torch_cuda.py); here CPU tensors must
+still run the plain versions, with no launch counted.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402,E501
+from repro_torch.kernels import tim_matmul as tk  # noqa: E402
+
+H100_SMS = 132     # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("mode,packed,n_max,m,n,k,path", [
+    # the served shapes of policy B (M = 128 rows of the padded step)
+    ("single", False, None, 128, 4096, 4096, "tc"),
+    ("single", False, None, 128, 256, 4096, "tc"),
+    ("single", False, None, 128, 13696, 4096, "tc"),
+    ("single", False, None, 128, 4096, 13696, "tc"),
+    ("single", False, None, 1, 400, 1040, "tc"),
+    ("single", False, None, 300, 4224, 528, "tc"),
+    # what the tc kernel does not take
+    ("single", False, 8, 128, 4096, 4096, "dp4a"),       # the ADC clamp
+    ("single", True, None, 128, 4096, 4096, "dp4a"),     # packed weights
+    ("phases", False, None, 128, 4096, 4096, "dp4a"),
+    ("bits", False, None, 128, 4096, 4096, "dp4a"),
+    ("single", False, None, 128, 130, 4096, "dp4a"),     # N % 16 != 0
+    ("single", False, None, 128, 256, 200, "dp4a"),      # K % 16 != 0
+    ("single", False, None, 4, 8, 8, "dp4a"),            # N, K < 16
+])
+def test_tim_path_rule(mode, packed, n_max, m, n, k, path):
+    assert tk.tim_path(mode, packed, n_max, m, n, k) == path
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (128, 13696, 4096, 1),     # 107 column tiles fill the card: fused
+    (128, 8448, 1040, 1),      # 66 tiles: the smallest fused grid
+    (128, 8320, 1040, 2),      # 65 tiles: K split
+    (128, 4096, 4096, 4),      # 32 tiles x 4 slices = 128 blocks
+    (128, 4096, 13696, 4),
+    (128, 256, 4096, 32),      # 2 tiles: one slice per K tile
+    (1, 400, 1040, 9),         # 4 tiles, 9 K tiles
+    (300, 4224, 528, 1),       # 3 row tiles x 33 column tiles
+    (128, 128, 128, 1),        # a single K tile cannot be split
+])
+def test_tim_tc_splits_rule(m, n, k, splits):
+    got = tk.tim_tc_splits(m, n, k, H100_SMS)
+    assert got == splits
+    tiles = -(-m // tk.TC_TILE) * -(-n // tk.TC_TILE)
+    assert got == 1 or tiles * got <= H100_SMS    # one wave
+
+
+@pytest.mark.parametrize("dtype,d,path", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.bfloat16, 80, "mma"), (torch.bfloat16, 96, "mma"),
+    (torch.bfloat16, 72, "fma"), (torch.bfloat16, 256, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+])
+def test_flash_path_rule(dtype, d, path):
+    assert fk.flash_path(dtype, d) == path
+
+
+@pytest.mark.parametrize("need_t", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_tim_single_cpu_runs_plain_and_counts_nothing(need_t, out_dtype):
+    rng = np.random.default_rng(5)
+    m, k, n = 33, 64, 48          # a tc-eligible shape
+    x = torch.from_numpy(rng.integers(-1, 2, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-1, 2, (k, n)).astype(np.int8))
+    w1 = torch.from_numpy(rng.random(n).astype(np.float32))
+    w2 = torch.from_numpy(rng.random(n).astype(np.float32))
+    i1 = torch.tensor(0.25)
+    assert tk.tim_path("single", False, None, m, n, k) == "tc"
+    reset_launch_counts()
+    got = tk.tim_matmul_single(x, w, w1, w2, i1, packed=False,
+                               need_t=need_t, out_dtype=out_dtype)
+    assert not any(launch_counts().values())
+    want = tk.tim_st_plain(x, w, w1, w2, i1.reshape(1), mode="single",
+                           packed=False, need_t=need_t, out_dtype=out_dtype)
+    assert torch.equal(got, want)
+    # the plain version's integer products, by hand
+    s = x.long() @ w.long()
+    t = x.long().abs() @ w.long().abs()
+    ref = (w1 + w2) * 0.5 * s.float()
+    if need_t:
+        ref = ref + (w1 - w2) * 0.5 * t.float()
+    assert torch.equal(got, (i1 * ref).to(out_dtype))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_cpu_bf16_runs_plain_and_counts_nothing(d):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .bfloat16() for s in ((1, 20, 4, d), (1, 20, 2, d),
+                                     (1, 20, 2, d)))
+    assert fk.flash_path(q.dtype, d) == "wgmma"
+    reset_launch_counts()
+    got = fk.flash_attention(q, k, v, causal=True)
+    assert not any(launch_counts().values())
+    assert torch.equal(got, fk.flash_attention_plain(q, k, v, causal=True))
