@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card::
     python3 chip_smoke.py   # build, kernel phases, sharded and flash
                             # attention, engine runs
     python3 chip_smoke.py --ab PARENT   # A/B against the checkout PARENT:
-                            # flash phase + policy B, in turns
+                            # flash and TiM rows 3-4 phases, policies
+                            # B, C, A, in turns
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -25,9 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
    torch.profiler (``device_ms``, the kernels alone), beside the plain
    version, the work's bound on the card and, where one PyTorch call
    computes the same function, that call; the TiM lines name the kernel
-   that served (``tim_path``: the s8 tensor-core ``tc`` kernel for the
-   single-phase dense cases without ``n_max``, ``dp4a`` otherwise) and
-   the tc kernel's K slices;
+   that served (``tim_path``: the s8 tensor-core ``tc`` kernel without
+   ``n_max`` for single-phase dense, two-phase and bit-serial weights,
+   ``dp4a`` otherwise; rows 3 and 4 must take ``tc`` at the four shapes
+   and ``dp4a`` at ``n_max=8``) and the tc kernel's K slices; rows 3
+   and 4 are served packed, and their dense instance is also held and
+   timed at (4096, 13696);
 4. sharded attention (``repro_torch.distrib.decode_attn``, the
    compacted-partials kernel) over a bf16 pool of 262,144 blocks of 16
    (chatglm3-6b attention: H=32, Hk=2, D=128) cut into n = 4 contiguous
@@ -61,8 +65,9 @@ Phases (any failure exits non-zero; nothing is caught):
    read after it; the first step's logits of the kernel route are
    compared with the plain route's (relative L2 <= 0.5, argmax equal
    on >= 3/4 of the slots), and one step is traced with torch.profiler
-   (device time by kernel beside the step's wall time); under policy B
-   every single-phase launch must have taken the tc kernel;
+   (device time by kernel beside the step's wall time); every
+   single-phase launch of policy B, two-phase launch of policy C and
+   bit-serial launch of policy A must have taken the tc kernel;
 7. layout runs under policy D at full depth, on its params and prompts
    with 32 new tokens each (with 16, the 12 requests never hold more
    than 123 blocks, and a pool at the hard floor would not preempt):
@@ -170,8 +175,8 @@ def device_ms(fn, names, iters: int = 10):
 
 
 PAGED_NAMES = ("paged_attn", "paged_merge")
-# tim_single_tc, tim_accumulate, tim_epilogue, and the fill that zeroes
-# the K slices' int32 workspace (torch.zeros: FillFunctor, or a memset)
+# tim_tc, tim_accumulate, tim_epilogue, and the fill that zeroes the K
+# slices' int32 workspace (torch.zeros: FillFunctor, or a memset)
 TIM_NAMES = ("tim_", "FillFunctor", "Memset")
 
 
@@ -220,13 +225,17 @@ def tim_phase(name, spec, gen, iters):
     import torch
     from repro_torch.kernels import tim_matmul as tk
     mode, packed, bits, need_t, _ = spec
+    cases = [(s, None, packed) for s in TIM_SHAPES] + \
+        [((4096, 4096), 8, packed)]
+    if mode != "single":
+        # served packed; the dense instance is held and timed too
+        cases.append(((4096, 13696), None, False))
     rows = []
-    for (k, n), n_max in [(s, None) for s in TIM_SHAPES] + \
-            [((4096, 4096), 8)]:
+    for (k, n), n_max, pk in cases:
         m = 128
         x, w, wp, w1, w2, isc = tim_inputs(m, k, n, mode, bits, gen)
-        wd = wp if packed else w
-        kw = dict(mode=mode, packed=packed, need_t=need_t, n_max=n_max,
+        wd = wp if pk else w
+        kw = dict(mode=mode, packed=pk, need_t=need_t, n_max=n_max,
                   bits=bits, out_dtype=torch.bfloat16)
         out = tk.tim_st_launch(x, wd, w1, w2, isc, **kw)
         ref = tk.tim_st_plain(x, wd, w1, w2, isc, **kw)
@@ -236,7 +245,10 @@ def tim_phase(name, spec, gen, iters):
         if not exact:
             raise AssertionError(f"{name} K={k} N={n} n_max={n_max}: "
                                  f"kernel != plain (max |diff| {err})")
-        path = tk.tim_path(mode, packed, n_max, m, n, k)
+        path = tk.tim_path(mode, pk, n_max, m, n, k)
+        if mode != "single" and path != ("dp4a" if n_max else "tc"):
+            raise AssertionError(f"{name} K={k} N={n} n_max={n_max}: "
+                                 f"served by {path}")
         ms = time_ms(lambda: tk.tim_st_launch(x, wd, w1, w2, isc, **kw),
                      iters)
         dev_ms = device_ms(lambda: tk.tim_st_launch(x, wd, w1, w2, isc,
@@ -252,14 +264,17 @@ def tim_phase(name, spec, gen, iters):
         ops = 2.0 * m * n * k * passes * (2 if t_eff else 1)
         nbytes = m * k + wd.numel() + 8 * n + 2 * m * n
         b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-        row = dict(K=k, N=n, n_max=n_max, path=path, bit_exact=exact,
+        row = dict(K=k, N=n, n_max=n_max, packed=pk, path=path,
+                   bit_exact=exact,
                    max_abs_err=err, ms=ms, device_ms=dev_ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by)
-        splits = tk.tim_tc_splits(m, n, k, tk.sm_count(x.device)) \
+        splits = tk.tim_tc_splits(m, n, k, tk.sm_count(x.device),
+                                  tk.TC_TILE_N[mode]) \
             if path == "tc" else None
-        log(f"[kernel {name}] M={m} K={k} N={n} n_max={n_max} path={path} "
-            f"splits={splits} bit_exact={exact} max_abs_err={err} "
+        log(f"[kernel {name}] M={m} K={k} N={n} n_max={n_max} packed={pk} "
+            f"path={path} splits={splits} bit_exact={exact} "
+            f"max_abs_err={err} "
             f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})")
         rows.append(row)
@@ -978,11 +993,11 @@ def engine_run(label, pol, layers, seed, keep=False):
     if missing:
         raise AssertionError(f"policy {label}: kernels never launched on "
                              f"the served path: {missing}")
-    if "tim_single" in need and counts["tim_single_tc"] != \
-            counts["tim_single"]:
-        raise AssertionError(f"policy {label}: {counts['tim_single']} "
-                             f"single-phase launches, only "
-                             f"{counts['tim_single_tc']} on the tc path")
+    for kname in ("tim_single", "tim_two_phase", "tim_bitserial"):
+        if kname in need and counts[kname + "_tc"] != counts[kname]:
+            raise AssertionError(f"policy {label}: {counts[kname]} {kname} "
+                                 f"launches, only {counts[kname + '_tc']} "
+                                 f"on the tc path")
     if st["prefix_hit_tokens"] <= 0 or st["cow_copies"] <= 0:
         raise AssertionError(f"policy {label}: prefix reuse / copy-on-write "
                              f"did not fire: {st}")
@@ -1145,11 +1160,12 @@ def f1_runs(params, cfg, seed, ref):
         raise AssertionError("; ".join(failures))
 
 
-# one turn of the A/B: the flash phase and policy B's engine run of the
-# tree's own chip_smoke.py, in a process of its own.  It calls that
-# tree's flash_phase(gen, iters), engine_run(label, policy, layers, seed)
-# and POLICIES, so the other checkout must have them with these
-# signatures
+# one turn of the A/B: the flash phase, the TiM phases of rows 3 and 4
+# and the engine runs of policies B, C and A of the tree's own
+# chip_smoke.py, in a process of its own.  It calls that tree's
+# flash_phase(gen, iters), tim_phase(name, spec, gen, iters),
+# engine_run(label, policy, layers, seed), TIM_KERNELS and POLICIES, so
+# the other checkout must have them with these signatures
 AB_TURN = """
 import sys
 tree, iters, layers, seed = sys.argv[1], *map(int, sys.argv[2:5])
@@ -1160,15 +1176,22 @@ from repro_torch.kernels import _build
 _build.build_all()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-cs.flash_phase(torch.Generator(device="cuda").manual_seed(seed), iters)
-cs.engine_run("B", cs.POLICIES["B"], layers, seed)
+gen = torch.Generator(device="cuda").manual_seed(seed)
+cs.flash_phase(gen, iters)
+for name in ("tim_two_phase", "tim_bitserial"):
+    cs.tim_phase(name, cs.TIM_KERNELS[name], gen, iters)
+for label in ("B", "C", "A"):
+    cs.engine_run(label, cs.POLICIES[label], layers, seed)
 """
+AB_LINES = ("[kernel flash", "[kernel tim_two_phase", "[kernel tim_bitserial",
+            "[run B", "[engine B", "[profile B", "[run C", "[engine C",
+            "[profile C", "[run A", "[engine A", "[profile A")
 
 
 def ab_runs(parent: str, args) -> None:
     """Another checkout (``parent``) and this one in turns: parent,
-    change, change, parent; each turn prints its flash and policy-B
-    lines with an ``[ab <turn> <tree>]`` prefix."""
+    change, change, parent; each turn prints its flash, TiM rows 3-4
+    and policy B, C, A lines with an ``[ab <turn> <tree>]`` prefix."""
     turns = [("parent", parent), ("change", HERE), ("change", HERE),
              ("parent", parent)]
     for i, (label, tree) in enumerate(turns):
@@ -1178,8 +1201,7 @@ def ab_runs(parent: str, args) -> None:
              str(args.layers), str(args.seed)],
             capture_output=True, text=True, cwd=tree)
         for line in proc.stdout.splitlines():
-            if line.startswith(("[kernel flash", "[run B", "[engine B",
-                                "[profile B")):
+            if line.startswith(AB_LINES):
                 log(f"[ab {i} {label}] {line}")
         if proc.returncode != 0:
             log(proc.stdout[-2000:] + proc.stderr[-4000:])
@@ -1193,10 +1215,11 @@ def main(argv=None) -> int:
                     help="depth of every engine run (full: 28)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--ab", metavar="PARENT",
-                    help="instead of the smoke run: the flash phase and "
-                         "policy B's engine run of the checkout PARENT and "
-                         "of this one, in turns (parent, change, change, "
-                         "parent)")
+                    help="instead of the smoke run: the flash phase, the "
+                         "two-phase and bit-serial TiM phases and the "
+                         "engine runs of policies B, C and A of the "
+                         "checkout PARENT and of this one, in turns "
+                         "(parent, change, change, parent)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1220,9 +1243,12 @@ def main(argv=None) -> int:
     took = _build.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f}s per-source {took}")
     for name in took:
+        fn = None   # the kernel a "Used N registers" / spill line is of
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "registers" in line or "spill" in line:
+                log(f"[ptxas {name}] {fn}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1253,7 +1279,8 @@ def main(argv=None) -> int:
     kernels = []
     for name, spec in TIM_KERNELS.items():
         r = next(x for x in tim_rows[name]
-                 if (x["K"], x["N"]) == (4096, 13696))
+                 if (x["K"], x["N"]) == (4096, 13696)
+                 and x["packed"] == spec[1] and x["n_max"] is None)
         kernels.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/tim_matmul.cu", replaces=spec[4],

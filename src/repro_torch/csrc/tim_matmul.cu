@@ -1,8 +1,8 @@
 // TiM ternary matmul for Hopper (sm_90a): one templated kernel for the
 // single-phase, two-phase and bit-serial products, over dense int8 or
 // 2-bit packed ternary weights, with the optional per-L=16-block ADC
-// clamp (n_max); and an s8 tensor-core kernel for the single-phase
-// product of dense int8 weights without the clamp.
+// clamp (n_max); and an s8 tensor-core kernel for the products without
+// the clamp.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tim_matmul.py:
 //   tim_matmul_pallas                   (_tim_kernel, dense)
@@ -21,26 +21,39 @@
 // every plane is its own clamped access (S, T shifted by b).
 // Under n_max the (n, k) = ((T+S)/2, (T-S)/2) counts of each 16-row
 // block are clamped at n_max before accumulating (T is always kept).
+// |x| and -x wrap per byte as int8 arithmetic does (|-128| = -128,
+// max(-(-128), 0) = 0), as in the Pallas kernels.
 //
 // Bound: at the serving shape (M = 128 rows) the weight bytes dominate
 // the traffic, so the card's bound is memory (a packed 4096x13696
-// weight is 14 MB, ~4 us at 3.35 TB/s; int8 ~17 us).  Both kernels
+// weight is 14 MB, ~4 us at 3.35 TB/s; int8 ~17 us), or the s8
+// operations where T and two phases make 4 products.  Both kernels
 // evaluate the f32 epilogue with __fmul_rn / __fadd_rn in the plain
 // version's order, so kernel and plain version agree bit for bit.
 //
-// tim_single_tc (tim_single_tc_launch; single-phase, dense int8 W, no
-// clamp, K % 16 == 0, N % 16 == 0): one block of 8 warps per 128
-// columns and 128 rows (all of M <= 128, so each W tile leaves HBM once)
-// over a range of K.  A ring of 4 stages of 128 K codes (x 128 x 128,
-// W 128 x 128 bytes) is filled by 16-byte cp.async copies.  s8 mma.sync
-// m16n8k32 (s32 accumulators, exact) wants both operands K-major, and W
-// is stored N-major: ldmatrix.trans of b16 pairs of W bytes, with the
-// lanes' row addresses picking K rows {0,1,4,5,..} and {2,3,6,7,..},
-// hands each thread two K-pairs of two adjacent columns, and two
-// __byte_perm turn them into the B fragments of an even and an odd
-// column (a 4 x 4 byte transpose in registers; the W tile's 16-byte
+// tim_tc (tim_tc_launch; no clamp, K % 16 == 0, N % 16 == 0): one block
+// of 8 warps per 128 rows (all of M <= 128, so each W tile leaves HBM
+// once) and 128 columns (single-phase and bit-serial: warp tiles of 64 x
+// 32, S and T in 2 x 64 s32 accumulators a thread) or 64 (two-phase:
+// warp tiles of 32 x 32, so that its 4 products, S and T of each phase,
+// also fit in 128), over a range of K.  A ring of 4 stages of 128 K
+// codes (x 128 x 128 bytes, W 128 x 128 or 64 codes, or a quarter of
+// that packed) is filled by 16-byte cp.async copies.  s8 mma.sync
+// m16n8k32 (s32 accumulators, exact) wants both operands K-major.
+// Dense W is stored N-major: ldmatrix.trans of b16 pairs of W bytes,
+// with the lanes' row addresses picking K rows {0,1,4,5,..} and
+// {2,3,6,7,..}, hands each thread two K-pairs of two adjacent columns,
+// and two __byte_perm turn them into the B fragments of an even and an
+// odd column (a 4 x 4 byte transpose in registers; the W tile's 16-byte
 // chunks are XOR-swizzled by those K rows, so the loads are free of
-// bank conflicts).  T takes |x| and |W| of the same fragments.  Where
+// bank conflicts).  Packed W needs no transpose: a byte holds 4
+// consecutive K codes of one column, which decoded in byte order are
+// one B-fragment register; a thread's 32-bit load of 4 adjacent columns'
+// bytes gives its register of 4 n8 blocks (its MMA column l stands for
+// column 4l + j of block j), and two __byte_perm per register decode it
+// (the staged rows are padded so those loads are conflict-free).  The
+// two-phase product takes pos and neg from each x fragment by per-byte
+// SIMD; T takes |x| (or pos, neg) and |W| of the same fragments.  Where
 // the grid of column tiles fills the card (the caller's `splits` = 1),
 // the epilogue runs on the accumulators and writes out directly;
 // otherwise K is cut into `splits` slices whose int32 sums go into a
@@ -76,20 +89,37 @@ constexpr int L_BLOCK = 16;
 
 enum { MODE_SINGLE = 0, MODE_PHASES = 1, MODE_BITS = 2 };
 
-// 4 two-bit fields (00 -> 0, 01 -> +1, 11 -> -1) -> 4 int8 codes
-__device__ __forceinline__ int decode4(unsigned byte) {
-  unsigned out = 0;
+// Four packed bytes, byte j holding codes 4p .. 4p + 3 of column j, to
+// four words of 4 int8 codes b[j] (byte f = field f: code 4p + f; for
+// the tc kernel, s8 B-fragment registers) and |W| in ab[j].  Each field
+// picks a byte of a 4-entry table (00 -> 0, 01 -> 1, 10 (reserved) ->
+// 0, 11 -> -1) by __byte_perm.
+template <bool ABS>
+__device__ __forceinline__ void decode_b(uint32_t w, uint32_t* b,
+                                         uint32_t* ab) {
+  uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
+  lo = (lo | (lo << 2)) & 0x33333333u;   // byte j: nibbles f0, f1
+  hi = (hi | (hi << 2)) & 0x33333333u;   // byte j: nibbles f2, f3
 #pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    unsigned fld = (byte >> (2 * f)) & 3u;
-    unsigned code = fld == 1u ? 0x01u : (fld == 3u ? 0xFFu : 0u);
-    out |= code << (8 * f);
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t sel = __byte_perm(lo, hi, j | ((j + 4) << 4));
+    b[j] = __byte_perm(0xFF000100u, 0u, sel);
+    if (ABS) ab[j] = __byte_perm(0x01000100u, 0u, sel);
   }
-  return static_cast<int>(out);
 }
 
+// one packed byte -> its 4 int8 codes
+__device__ __forceinline__ int decode4(unsigned byte) {
+  uint32_t b[4];
+  decode_b<false>(byte, b, nullptr);
+  return static_cast<int>(b[0]);
+}
+
+// |x|, max(x, 0) and max(-x, 0) of 4 int8 codes, each byte wrapping
+// as int8 arithmetic does (the Pallas kernels take them in int8):
+// |-128| = -128 and -(-128) = -128, so max(-(-128), 0) = 0
 __device__ __forceinline__ int vabs(int a) {
-  return static_cast<int>(__vabsss4(static_cast<unsigned>(a)));
+  return static_cast<int>(__vabs4(static_cast<unsigned>(a)));
 }
 
 __device__ __forceinline__ int vpos(int a) {
@@ -98,7 +128,7 @@ __device__ __forceinline__ int vpos(int a) {
 
 __device__ __forceinline__ int vneg(int a) {
   return static_cast<int>(
-      __vmaxs4(__vnegss4(static_cast<unsigned>(a)), 0u));
+      __vmaxs4(__vneg4(static_cast<unsigned>(a)), 0u));
 }
 
 // the pass's activation word: phase mask or bit plane of 4 codes
@@ -205,11 +235,9 @@ tim_accumulate(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
               }
             } else {
               s_acc[0][i][j] = __dp4a(xa[i], wb[j], s_acc[0][i][j]);
-              if (need_t) {
-                // bit-serial codes are non-negative: |x| == x
-                const int ax = MODE == MODE_BITS ? xa[i] : vabs(xa[i]);
-                t_acc[0][i][j] = __dp4a(ax, vabs(wb[j]), t_acc[0][i][j]);
-              }
+              if (need_t)   // bit-serial codes too: |x| == x on [0, 127]
+                t_acc[0][i][j] =
+                    __dp4a(vabs(xa[i]), vabs(wb[j]), t_acc[0][i][j]);
             }
           }
         }
@@ -365,21 +393,42 @@ void launch_mode(const Args& a, bool packed, const float* w1, const float* w2,
 }
 
 // ---------------------------------------------------------------------------
-// single-phase s8 tensor-core kernel (dense int8 W, no clamp)
+// s8 tensor-core kernel (no clamp): single-phase (and bit-serial) or
+// two-phase, dense int8 or 2-bit packed W
 // ---------------------------------------------------------------------------
 
 constexpr int TM = 128;                      // rows per block
-constexpr int TN = 128;                      // columns per block
 constexpr int TK = 128;                      // K codes per stage
 constexpr int TST = 4;                       // cp.async ring stages
-constexpr int TTHREADS = 256;                // 2 x 4 warps of 64 x 32
-constexpr int TSTAGE = TM * TK + TK * TN;    // bytes: x tile, W tile
-constexpr int TSMEM = TST * TSTAGE;
+constexpr int TTHREADS = 256;                // 8 warps
 
-// W tile row k: its 16-byte chunk c sits at c ^ wsw(k), so that the K
-// rows one ldmatrix reads ({0,1,4,5,8,9,12,13} or those + 2) hit 8
-// distinct chunks
-__device__ __forceinline__ int wsw(int k) { return (k & 1) | ((k >> 1) & 6); }
+// Block and warp tiles of one instance.  The single-phase product keeps
+// 2 x 64 s32 accumulators per thread with T (S and T of a 64 x 32 warp
+// tile); the two-phase one has 4 products (S and T of each phase), so
+// its warps take 32 x 32 and its blocks 128 x 64, which keeps it at 128.
+template <int MODE, bool PACKED>
+struct TcTile {
+  static constexpr int WM = MODE == MODE_PHASES ? 32 : 64;  // warp rows
+  static constexpr int WARPS_M = TM / WM;
+  static constexpr int BN = 32 * (TTHREADS / 32 / WARPS_M);  // block cols
+  static constexpr int MT = WM / 16;                         // m16 tiles
+  static constexpr int NP = MODE == MODE_PHASES ? 2 : 1;     // phases
+  // staged W: dense, TK rows of BN codes (16-byte chunks XOR-swizzled);
+  // packed, TK / 4 rows of BN bytes padded by 32, so that the 4 rows a
+  // warp reads at once start 8 banks apart
+  static constexpr int WROW = PACKED ? BN + 32 : BN;
+  static constexpr int STAGE = TM * TK + (PACKED ? TK / 4 : TK) * WROW;
+  static constexpr int SMEM = TST * STAGE;
+};
+
+// dense W tile row k: its 16-byte chunk c sits at c ^ wsw<BN>(k), so that
+// the K rows one ldmatrix reads ({0,1,4,5,8,9,12,13} or those + 2) hit 8
+// distinct 16-byte bank groups (rows of 128 bytes, or of 64: two rows
+// per 128 bytes)
+template <int BN>
+__device__ __forceinline__ int wsw(int k) {
+  return BN == 128 ? (k & 1) | ((k >> 1) & 6) : (k >> 2) & 3;
+}
 
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -393,19 +442,28 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-template <bool NEED_T, bool SPLIT, typename OutT>
+// MODE_SINGLE (the bit-serial product too, see tim_tc_launch) or
+// MODE_PHASES; PACKED: W as (K/4, N) bytes; SPLIT: int32 sums into the
+// workspace (planes: S of each phase, then T of each) instead of the
+// fused epilogue.
+template <int MODE, bool PACKED, bool NEED_T, bool SPLIT, typename OutT>
 __global__ void __launch_bounds__(TTHREADS, 1)
-tim_single_tc(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-              const float* __restrict__ w1, const float* __restrict__ w2,
-              const float* __restrict__ iscale, int* __restrict__ acc,
-              OutT* __restrict__ out, int M, int N, int K,
-              int tiles_per_split) {
+tim_tc(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
+       const float* __restrict__ w1, const float* __restrict__ w2,
+       const float* __restrict__ iscale, int* __restrict__ acc,
+       OutT* __restrict__ out, int M, int N, int K, int tiles_per_split) {
   using namespace tc;
+  using S = TcTile<MODE, PACKED>;
+  constexpr int MT = S::MT, NP = S::NP, BN = S::BN;
+  // |x| of the single-phase fragment for T (two-phase: pos and neg are
+  // non-negative, their own |x|)
+  constexpr bool XT = NEED_T && MODE != MODE_PHASES;
   extern __shared__ __align__(128) unsigned char smem_t[];
   const uint32_t base = smem_u32(smem_t);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int wm = warp % S::WARPS_M, wn = warp / S::WARPS_M;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * BN;
   const int kt0 = blockIdx.z * tiles_per_split;
   const int ktiles = min(tiles_per_split, (K + TK - 1) / TK - kt0);
 
@@ -415,7 +473,7 @@ tim_single_tc(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   // which zeroes every product term past K whatever W holds there.
   auto load = [&](int kt, int stage) {
     const int k0 = (kt0 + kt) * TK;
-    const uint32_t xs = base + stage * TSTAGE, ws = xs + TM * TK;
+    const uint32_t xs = base + stage * S::STAGE, ws = xs + TM * TK;
     for (int u = tid; u < TM * TK / 16; u += TTHREADS) {
       const int r = u / (TK / 16), c = u % (TK / 16);
       const int m = m0 + r, k = k0 + 16 * c;
@@ -423,27 +481,35 @@ tim_single_tc(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         cp16(xs + r * TK + ((c ^ (r & 7)) << 4),
              x + (size_t)m * K + min(k, K - 16), k < K ? 16 : 0);
     }
-    for (int u = tid; u < TK * TN / 16; u += TTHREADS) {
-      const int kk = u / (TN / 16), c = u % (TN / 16);
-      const int k = k0 + kk, n = n0 + 16 * c;
-      if (k < K && n < N)
-        cp16(ws + kk * TN + ((c ^ wsw(kk)) << 4), w + (size_t)k * N + n,
-             16);
+    for (int u = tid; u < (PACKED ? TK / 4 : TK) * BN / 16; u += TTHREADS) {
+      const int kk = u / (BN / 16), c = u % (BN / 16);
+      const int n = n0 + 16 * c;
+      if (PACKED) {
+        const int kp = k0 / 4 + kk;
+        if (kp < K / 4 && n < N)
+          cp16(ws + kk * S::WROW + 16 * c, w + (size_t)kp * N + n, 16);
+      } else {
+        const int k = k0 + kk;
+        if (k < K && n < N)
+          cp16(ws + kk * BN + ((c ^ wsw<BN>(kk)) << 4),
+               w + (size_t)k * N + n, 16);
+      }
     }
   };
 
-  // [m16 tile][16-column chunk][even/odd columns][fragment]
-  int s_acc[4][2][2][4], t_acc[NEED_T ? 4 : 1][2][2][4];
+  // [phase][m16 tile][n8 block j][fragment].  Dense W: block j = 2h + p
+  // holds columns 16h + 2l + p (l = 0..7 its MMA column); packed: 4l + j.
+  int s_acc[NP][MT][4][4], t_acc[NEED_T ? NP : 1][NEED_T ? MT : 1][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s_acc[i][h][p][e] = 0;
-          if (NEED_T) t_acc[NEED_T ? i : 0][h][p][e] = 0;
+          s_acc[p][i][j][e] = 0;
+          if (NEED_T) t_acc[NEED_T ? p : 0][NEED_T ? i : 0][j][e] = 0;
         }
 
 #pragma unroll
@@ -456,152 +522,203 @@ tim_single_tc(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();  // tile kt landed; the stage of kt - 1 is free
     if (kt + TST - 1 < ktiles) load(kt + TST - 1, (kt + TST - 1) % TST);
     cp_commit();
-    const uint32_t xs = base + (kt % TST) * TSTAGE, ws = xs + TM * TK;
+    const uint32_t xs = base + (kt % TST) * S::STAGE, ws = xs + TM * TK;
 #pragma unroll
     for (int ks = 0; ks < TK / 32; ++ks) {
-      // B fragments of this warp's 32 columns: chunk h holds columns
-      // 16h + 2g (even) and 16h + 2g + 1 (odd) of thread (g, t)
-      uint32_t bf[2][2][2];
+      // B fragments (b0, b1) of this warp's 32 columns, and of |W|
+      uint32_t bf[2][4], ab[2][4];
+      if (PACKED) {
+        // thread (g, t): b0 of block j is codes 4t .. 4t + 3 of this K
+        // step's 32 in column 4g + j, one byte of packed row 8 ks + t;
+        // b1 the same 16 codes on.  Two 32-bit loads, no transpose.
+        const unsigned char* wp = smem_t + (ws - base) + 32 * wn + 4 * g;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = 2 * wn + h, i = lane >> 3, r = lane & 7;
-        const int kk =
-            ks * 32 + 16 * (i >> 1) + 2 * (i & 1) + (r & 1) + 4 * (r >> 1);
-        uint32_t r0, r1, r2, r3;
-        ldsm_x4_t(ws + kk * TN + ((c ^ wsw(kk)) << 4), r0, r1, r2, r3);
-        bf[h][0][0] = __byte_perm(r0, r1, 0x6420);
-        bf[h][0][1] = __byte_perm(r2, r3, 0x6420);
-        bf[h][1][0] = __byte_perm(r0, r1, 0x7531);
-        bf[h][1][1] = __byte_perm(r2, r3, 0x7531);
+        for (int f = 0; f < 2; ++f)
+          decode_b<NEED_T>(*reinterpret_cast<const uint32_t*>(
+                               wp + (8 * ks + 4 * f + t) * S::WROW),
+                           bf[f], ab[f]);
+      } else {
+        // ldmatrix.trans of b16 pairs hands each thread two K-pairs of
+        // two adjacent columns; two __byte_perm make the B fragments of
+        // the even and the odd column (a 4 x 4 byte transpose)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 2 * wn + h, i = lane >> 3, r = lane & 7;
+          const int kk =
+              ks * 32 + 16 * (i >> 1) + 2 * (i & 1) + (r & 1) + 4 * (r >> 1);
+          uint32_t r0, r1, r2, r3;
+          ldsm_x4_t(ws + kk * BN + ((c ^ wsw<BN>(kk)) << 4), r0, r1, r2, r3);
+          bf[0][2 * h] = __byte_perm(r0, r1, 0x6420);
+          bf[1][2 * h] = __byte_perm(r2, r3, 0x6420);
+          bf[0][2 * h + 1] = __byte_perm(r0, r1, 0x7531);
+          bf[1][2 * h + 1] = __byte_perm(r2, r3, 0x7531);
+        }
+        if (NEED_T)
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) ab[f][j] = vabs(bf[f][j]);
       }
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row0 = 64 * wm + 16 * mt;
+      for (int mt = 0; mt < MT; ++mt) {
+        const int row0 = S::WM * wm + 16 * mt;
         if (m0 + row0 >= M) continue;  // warp-uniform: rows not stored
         uint32_t a[4];
         const int r = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
         const int c = 2 * ks + (lane >> 4);
         ldsm_x4(xs + r * TK + ((c ^ (r & 7)) << 4), a[0], a[1], a[2], a[3]);
+        // the activation fragment of each phase, and its |x| for T
+        uint32_t xa[NP][4], xt[XT ? 4 : 1];
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int p = 0; p < 2; ++p)
-            mma16832_s8(s_acc[mt][h][p], a, bf[h][p][0], bf[h][p][1]);
-        if (NEED_T) {
-          uint32_t aa[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) aa[e] = vabs(a[e]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int p = 0; p < 2; ++p)
-              mma16832_s8(t_acc[NEED_T ? mt : 0][h][p], aa,
-                          vabs(bf[h][p][0]), vabs(bf[h][p][1]));
+        for (int e = 0; e < 4; ++e) {
+          if (MODE == MODE_PHASES) {
+            xa[0][e] = vpos(a[e]);
+            xa[NP - 1][e] = vneg(a[e]);
+          } else {
+            xa[0][e] = a[e];
+            if (XT) xt[XT ? e : 0] = vabs(a[e]);
+          }
         }
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma16832_s8(s_acc[p][mt][j], xa[p], bf[0][j], bf[1][j]);
+            if (NEED_T)
+              mma16832_s8(t_acc[NEED_T ? p : 0][NEED_T ? mt : 0][j],
+                          XT ? xt : xa[p], ab[0][j], ab[1][j]);
+          }
       }
     }
   }
   cp_wait<0>();
 
-  // thread (g, t) holds rows g and g + 8 of each m16 tile, at columns
-  // 4t .. 4t + 3 of each 16-column chunk: (even c0, odd c0, even c1,
-  // odd c1) for row g, (even c2, odd c2, even c3, odd c3) for row g + 8
-  const int g = lane >> 2, t = lane & 3;
-  const float scale = SPLIT ? 0.0f : iscale[0];
+  // thread (g, t) holds rows g and g + 8 of each m16 tile, 8 columns in
+  // two groups q of 4 adjacent ones: dense 16q + 4t + i (block 2q +
+  // (i & 1), fragment i >> 1), packed 8t + 4q + i (block i, fragment q);
+  // fragments 2 and 3 are row g + 8's
+  const float i1 = SPLIT ? 0.0f : iscale[0];
+  const float i2 = SPLIT || NP == 1 ? 0.0f : iscale[1];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = n0 + 32 * wn + 16 * h + 4 * t;
+  for (int q = 0; q < 2; ++q) {
+    const int n = n0 + 32 * wn + (PACKED ? 8 * t + 4 * q : 16 * q + 4 * t);
     if (n >= N) continue;  // N % 16 == 0: all 4 columns in or out
     float cs[4] = {0, 0, 0, 0}, ct[4] = {0, 0, 0, 0};
     if (!SPLIT) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a = w1[n + j], b = w2[n + j];
-        cs[j] = __fmul_rn(__fadd_rn(a, b), 0.5f);
-        ct[j] = __fmul_rn(__fsub_rn(a, b), 0.5f);
+      for (int i = 0; i < 4; ++i) {
+        const float a = w1[n + i], b = w2[n + i];
+        cs[i] = __fmul_rn(__fadd_rn(a, b), 0.5f);
+        ct[i] = __fmul_rn(__fsub_rn(a, b), 0.5f);
       }
     }
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = m0 + 64 * wm + 16 * mt + g + 8 * i;
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + S::WM * wm + 16 * mt + g + 8 * hr;
         if (m >= M) continue;
-        const int sv[4] = {s_acc[mt][h][0][2 * i], s_acc[mt][h][1][2 * i],
-                           s_acc[mt][h][0][2 * i + 1],
-                           s_acc[mt][h][1][2 * i + 1]};
-        int tv[4] = {0, 0, 0, 0};
-        if (NEED_T) {
-          const int q = NEED_T ? mt : 0;
-          tv[0] = t_acc[q][h][0][2 * i];
-          tv[1] = t_acc[q][h][1][2 * i];
-          tv[2] = t_acc[q][h][0][2 * i + 1];
-          tv[3] = t_acc[q][h][1][2 * i + 1];
-        }
-        const size_t idx = (size_t)m * N + n;
-        if (SPLIT) {
+        const size_t idx = (size_t)m * N + n, plane = (size_t)M * N;
+        float v[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            atomicAdd(acc + idx + j, sv[j]);
-            if (NEED_T) atomicAdd(acc + (size_t)M * N + idx + j, tv[j]);
+        for (int i = 0; i < 4; ++i) {
+          const int j = PACKED ? i : 2 * q + (i & 1);
+          const int e = (PACKED ? q : i >> 1) + 2 * hr;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int sv = s_acc[p][mt][j][e];
+            const int tv =
+                NEED_T ? t_acc[NEED_T ? p : 0][NEED_T ? mt : 0][j][e] : 0;
+            if (SPLIT) {
+              atomicAdd(acc + p * plane + idx + i, sv);
+              if (NEED_T) atomicAdd(acc + (NP + p) * plane + idx + i, tv);
+            } else if (p == 0) {
+              v[i] = epilogue(sv, tv, cs[i], ct[i], NEED_T, i1);
+            } else {
+              // each phase rounded to the output type before p1 - p2
+              const float p2 =
+                  round_to(epilogue(sv, tv, cs[i], ct[i], NEED_T, i2), out);
+              v[i] = __fsub_rn(round_to(v[i], out), p2);
+            }
           }
-        } else {
-          float v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j] = epilogue(sv[j], tv[j], cs[j], ct[j], NEED_T, scale);
-          store4(out + idx, v);
         }
+        if (!SPLIT) store4(out + idx, v);
       }
     }
   }
 }
 
-template <bool NEED_T, bool SPLIT, typename OutT>
-int go_tc(const int8_t* x, const int8_t* w, const float* w1, const float* w2,
-          const float* iscale, int* acc, void* out, int M, int N, int K,
-          int splits, cudaStream_t st) {
-  auto kern = tim_single_tc<NEED_T, SPLIT, OutT>;
+template <int MODE, bool PACKED, bool NEED_T, bool SPLIT, typename OutT>
+int go_tc(const int8_t* x, const uint8_t* w, const float* w1,
+          const float* w2, const float* iscale, int* acc, void* out, int M,
+          int N, int K, int splits, cudaStream_t st) {
+  using S = TcTile<MODE, PACKED>;
+  auto kern = tim_tc<MODE, PACKED, NEED_T, SPLIT, OutT>;
   static bool opted_in = false;  // above 48 KB: once per instantiation
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TSMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
   const int ktiles = (K + TK - 1) / TK;
   const int per = (ktiles + splits - 1) / splits;
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM,
+  const dim3 grid((N + S::BN - 1) / S::BN, (M + TM - 1) / TM,
                   (ktiles + per - 1) / per);
-  kern<<<grid, TTHREADS, TSMEM, st>>>(x, w, w1, w2, iscale, acc,
-                                      static_cast<OutT*>(out), M, N, K, per);
+  kern<<<grid, TTHREADS, S::SMEM, st>>>(x, w, w1, w2, iscale, acc,
+                                        static_cast<OutT*>(out), M, N, K,
+                                        per);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool NEED_T>
-int go_tc_out(const int8_t* x, const int8_t* w, const float* w1,
+template <int MODE, bool PACKED, bool NEED_T>
+int go_tc_out(const int8_t* x, const uint8_t* w, const float* w1,
               const float* w2, const float* iscale, int* acc, void* out,
               int M, int N, int K, int splits, bool out_bf16,
               cudaStream_t st) {
   if (splits > 1) {
-    const int e = go_tc<NEED_T, true, float>(x, w, w1, w2, iscale, acc, out,
-                                             M, N, K, splits, st);
+    const int e = go_tc<MODE, PACKED, NEED_T, true, float>(
+        x, w, w1, w2, iscale, acc, out, M, N, K, splits, st);
     if (e != 0) return e;
     const size_t total = (size_t)M * N;
     const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
     if (out_bf16)
-      tim_epilogue<MODE_SINGLE, __nv_bfloat16><<<blocks, 256, 0, st>>>(
+      tim_epilogue<MODE, __nv_bfloat16><<<blocks, 256, 0, st>>>(
           acc, w1, w2, iscale, static_cast<__nv_bfloat16*>(out), M, N,
           NEED_T);
     else
-      tim_epilogue<MODE_SINGLE, float><<<blocks, 256, 0, st>>>(
+      tim_epilogue<MODE, float><<<blocks, 256, 0, st>>>(
           acc, w1, w2, iscale, static_cast<float*>(out), M, N, NEED_T);
     return static_cast<int>(cudaGetLastError());
   }
-  return out_bf16 ? go_tc<NEED_T, false, __nv_bfloat16>(
+  return out_bf16 ? go_tc<MODE, PACKED, NEED_T, false, __nv_bfloat16>(
                         x, w, w1, w2, iscale, acc, out, M, N, K, 1, st)
-                  : go_tc<NEED_T, false, float>(x, w, w1, w2, iscale, acc,
-                                                out, M, N, K, 1, st);
+                  : go_tc<MODE, PACKED, NEED_T, false, float>(
+                        x, w, w1, w2, iscale, acc, out, M, N, K, 1, st);
+}
+
+template <int MODE, bool PACKED>
+int go_tc_t(const int8_t* x, const uint8_t* w, const float* w1,
+            const float* w2, const float* iscale, int* acc, void* out,
+            int M, int N, int K, int need_t, int splits, bool out_bf16,
+            cudaStream_t st) {
+  return need_t ? go_tc_out<MODE, PACKED, true>(x, w, w1, w2, iscale, acc,
+                                                out, M, N, K, splits,
+                                                out_bf16, st)
+                : go_tc_out<MODE, PACKED, false>(x, w, w1, w2, iscale, acc,
+                                                 out, M, N, K, splits,
+                                                 out_bf16, st);
+}
+
+template <int MODE>
+int go_tc_p(const int8_t* x, const uint8_t* w, const float* w1,
+            const float* w2, const float* iscale, int* acc, void* out,
+            int M, int N, int K, int packed, int need_t, int splits,
+            bool out_bf16, cudaStream_t st) {
+  return packed ? go_tc_t<MODE, true>(x, w, w1, w2, iscale, acc, out, M, N,
+                                      K, need_t, splits, out_bf16, st)
+                : go_tc_t<MODE, false>(x, w, w1, w2, iscale, acc, out, M,
+                                       N, K, need_t, splits, out_bf16, st);
 }
 
 }  // namespace
@@ -642,30 +759,36 @@ extern "C" int tim_matmul_launch(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The s8 tensor-core single-phase product (tim_single_tc above): x (M,
-// K) int8, w (K, N) int8, K % 16 == 0 and N % 16 == 0, rows 16-byte
-// aligned; splits: the number of K slices (1: the epilogue fused, acc
-// unused; > 1: acc a zeroed int32 workspace of the S plane, then the T
-// plane when need_t, each M x N).  Returns cudaGetLastError() after the
+// The s8 tensor-core product without the clamp (tim_tc above): x (M, K)
+// int8; w (K, N) int8, or (K/4, N) uint8 when packed; K % 16 == 0 and
+// N % 16 == 0, rows 16-byte aligned; mode 0 (single), 1 (two-phase,
+// iscale [i1, i2]) or 2 (bit-serial: without the clamp sum_b (plane_b @
+// W) << b == codes @ W, and T likewise with |codes| == codes, exactly in
+// int32, so it is the single-phase product of the codes); splits: the
+// number of K slices (1: the epilogue fused, acc unused; > 1: acc a
+// zeroed int32 workspace of the S plane of each phase, then as many T
+// planes when need_t, each M x N).  Returns cudaGetLastError() after the
 // launches, or cudaErrorInvalidValue for a shape it does not take.
-extern "C" int tim_single_tc_launch(const void* x, const void* w,
-                                    const void* w1, const void* w2,
-                                    const void* iscale, void* acc, void* out,
-                                    int M, int N, int K, int need_t,
-                                    int splits, int out_bf16, void* stream) {
+extern "C" int tim_tc_launch(const void* x, const void* w, const void* w1,
+                             const void* w2, const void* iscale, void* acc,
+                             void* out, int M, int N, int K, int mode,
+                             int packed, int need_t, int splits,
+                             int out_bf16, void* stream) {
   if (M < 1 || N < 16 || K < 16 || N % 16 != 0 || K % 16 != 0 ||
       splits < 1 || splits > (K + TK - 1) / TK ||
-      (splits > 1 && acc == nullptr) || (M + TM - 1) / TM > 65535)
+      (splits > 1 && acc == nullptr) || (M + TM - 1) / TM > 65535 ||
+      mode < MODE_SINGLE || mode > MODE_BITS)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* xs = static_cast<const int8_t*>(x);
-  auto* ws = static_cast<const int8_t*>(w);
+  auto* ws = static_cast<const uint8_t*>(w);
   auto* f1 = static_cast<const float*>(w1);
   auto* f2 = static_cast<const float*>(w2);
   auto* is = static_cast<const float*>(iscale);
   auto* ac = static_cast<int*>(acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return need_t ? go_tc_out<true>(xs, ws, f1, f2, is, ac, out, M, N, K,
-                                  splits, out_bf16, st)
-                : go_tc_out<false>(xs, ws, f1, f2, is, ac, out, M, N, K,
-                                   splits, out_bf16, st);
+  if (mode == MODE_PHASES)
+    return go_tc_p<MODE_PHASES>(xs, ws, f1, f2, is, ac, out, M, N, K, packed,
+                                need_t, splits, out_bf16, st);
+  return go_tc_p<MODE_SINGLE>(xs, ws, f1, f2, is, ac, out, M, N, K, packed,
+                              need_t, splits, out_bf16, st);
 }

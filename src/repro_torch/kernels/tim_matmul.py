@@ -14,12 +14,14 @@ launch counter:
 
 Two kernels serve CUDA tensors, chosen by ``tim_path`` from the mode,
 packing, clamp and shape alone: ``"tc"``, the s8 tensor-core kernel
-(``tim_single_tc``: single-phase, dense int8 weights, no ``n_max``, K
-and N multiples of 16), counted again in ``tim_single_tc``; and
-``"dp4a"``, the CUDA-core kernel (``tim_accumulate`` + ``tim_epilogue``)
-for everything else.  ``tim_tc_splits`` says how many K slices the tc
-kernel takes: 1 (the epilogue fused, no workspace) where its column
-tiles fill the card.
+(``tim_tc``: no ``n_max``, K and N multiples of 16; single-phase with
+dense int8 weights, two-phase and bit-serial with dense or packed
+ones), counted again in ``tim_single_tc``, ``tim_two_phase_tc`` and
+``tim_bitserial_tc``; and ``"dp4a"``, the CUDA-core kernel
+(``tim_accumulate`` + ``tim_epilogue``) for everything else.
+``tim_tc_splits`` says how many K slices the tc kernel takes: 1 (the
+epilogue fused, no workspace) where its column tiles (``TC_TILE_N``)
+fill the card.
 
 A wrapper launches a kernel for CUDA tensors and runs the plain version
 (``tim_st_plain``, the S/T decomposition written with torch ops) for CPU
@@ -46,9 +48,13 @@ MODES = {"single": 0, "phases": 1, "bits": 2}
 
 # launches per kernel (one table row each); reset by the caller
 LAUNCHES = {"tim_single": 0, "tim_single_packed": 0, "tim_two_phase": 0,
-            "tim_bitserial": 0, "tim_single_tc": 0}
+            "tim_bitserial": 0, "tim_single_tc": 0, "tim_two_phase_tc": 0,
+            "tim_bitserial_tc": 0}
 
-TC_TILE = 128      # the tc kernel's rows, columns and K codes per tile
+TC_TILE = 128      # the tc kernel's rows and K codes per tile
+# its columns per tile: the two-phase instance keeps 4 products (S and T
+# of each phase) in registers, so its tiles are half as wide
+TC_TILE_N = {"single": 128, "phases": 64, "bits": 128}
 
 
 # ---------------------------------------------------------------------------
@@ -72,11 +78,13 @@ def _clamped_st(a: torch.Tensor, w: torch.Tensor, n_max: int):
         w = F.pad(w, (0, 0, 0, pad))
     nb = a.shape[1] // L_BLOCK
     ab = a.float().reshape(m, nb, L_BLOCK).transpose(0, 1)
+    # |x| in int8, as the Pallas kernels take it: |-128| wraps to -128
+    aab = a.abs().float().reshape(m, nb, L_BLOCK).transpose(0, 1)
     wb = w.float().reshape(nb, L_BLOCK, -1)
     if a.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     s = torch.bmm(ab, wb)
-    t = torch.bmm(ab.abs(), wb.abs())
+    t = torch.bmm(aab, wb.abs())
     n = torch.clamp((t + s) * 0.5, max=n_max)
     kk = torch.clamp((t - s) * 0.5, max=n_max)
     return ((n - kk).to(torch.int32).sum(0, dtype=torch.int32),
@@ -144,7 +152,7 @@ def tim_st_plain(x: torch.Tensor, w_data: torch.Tensor, w1: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-_TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+_TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                 + [ctypes.c_void_p])
 
 
@@ -158,11 +166,13 @@ def _lib(name: str = "tim_matmul_launch", argtypes=_ARGTYPES):
 
 def tim_path(mode: str, packed: bool, n_max: Optional[int], m: int, n: int,
              k: int) -> str:
-    """The kernel that serves a CUDA call: ``"tc"`` (s8 tensor cores:
-    single-phase, dense int8 weights, no clamp, K and N multiples of 16
-    so that every row is 16-byte aligned) or ``"dp4a"``."""
-    if (mode == "single" and not packed and n_max is None and m >= 1
-            and n >= 16 and k >= 16 and n % 16 == 0 and k % 16 == 0):
+    """The kernel that serves a CUDA call: ``"tc"`` (s8 tensor cores: no
+    clamp, K and N multiples of 16 so that every row is 16-byte aligned;
+    single-phase with dense int8 weights, two-phase and bit-serial with
+    dense or packed ones) or ``"dp4a"``."""
+    if n_max is not None or (mode == "single" and packed):
+        return "dp4a"
+    if m >= 1 and n >= 16 and k >= 16 and n % 16 == 0 and k % 16 == 0:
         return "tc"
     return "dp4a"
 
@@ -174,14 +184,16 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def tim_tc_splits(m: int, n: int, k: int, sms: int) -> int:
-    """K slices of the tc kernel's grid on a card of ``sms`` SMs.  1
-    where the (row, column) tiles alone give at least one block to every
-    other SM: the epilogue is fused and no workspace is zeroed.
-    Otherwise as many slices as keep one wave on the card (at most one
-    per K tile), their int32 sums added into a workspace and finished by
-    the epilogue pass."""
-    tiles = -(-m // TC_TILE) * -(-n // TC_TILE)
+def tim_tc_splits(m: int, n: int, k: int, sms: int,
+                  tile_n: int = TC_TILE) -> int:
+    """K slices of the tc kernel's grid on a card of ``sms`` SMs, for
+    column tiles of ``tile_n`` (``TC_TILE_N[mode]``).  1 where the (row,
+    column) tiles alone give at least one block to every other SM: the
+    epilogue is fused and no workspace is zeroed.  Otherwise as many
+    slices as keep one wave on the card (at most one per K tile), their
+    int32 sums added into a workspace and finished by the epilogue
+    pass."""
+    tiles = -(-m // TC_TILE) * -(-n // tile_n)
     if 2 * tiles >= sms:
         return 1
     return max(1, min(-(-k // TC_TILE), sms // tiles))
@@ -228,15 +240,17 @@ def tim_st_launch(x, w_data, w1, w2, iscale, *, mode: str, packed: bool,
         if x.data_ptr() % 16 or w_data.data_ptr() % 16:
             raise ValueError("x / w: the tc kernel needs 16-byte aligned "
                              "rows")
-        splits = tim_tc_splits(m, n, k, sm_count(x.device))
-        acc = torch.zeros((2 if need_t else 1, m, n), dtype=torch.int32,
+        splits = tim_tc_splits(m, n, k, sm_count(x.device), TC_TILE_N[mode])
+        # int32 planes: S of each phase, then T of each
+        planes = (2 if mode == "phases" else 1) * (2 if need_t else 1)
+        acc = torch.zeros((planes, m, n), dtype=torch.int32,
                           device=x.device) if splits > 1 else None
-        err = _lib("tim_single_tc_launch", _TC_ARGTYPES)(
+        err = _lib("tim_tc_launch", _TC_ARGTYPES)(
             x.data_ptr(), w_data.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             iscale.data_ptr(), None if acc is None else acc.data_ptr(),
-            out.data_ptr(), m, n, k, int(need_t), splits,
-            int(out_dtype == torch.bfloat16), stream)
-        _build.check(err, "tim_matmul[single, tc]")
+            out.data_ptr(), m, n, k, MODES[mode], int(packed), int(need_t),
+            splits, int(out_dtype == torch.bfloat16), stream)
+        _build.check(err, f"tim_matmul[{mode}, tc]")
         return out
     # int32 (S, T) workspace the kernel's K slices add into atomically
     planes = (2 if mode == "phases" else 1) * \

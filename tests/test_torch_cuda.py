@@ -5,7 +5,9 @@ without JAX: ``python -m pytest -q -m cuda --noconftest
 tests/test_torch_cuda.py``.  Without a card every test skips.
 
 Tolerances: the TiM kernels equal their plain versions bit for bit
-(exact int32 products, the same correctly rounded f32 epilogue); paged
+(exact int32 products, the same correctly rounded f32 epilogue), for
+activation codes over the whole int8 range (|-128| and -(-128) wrap as
+in int8, as in the Pallas kernels); paged
 attention, mixed and packed, at block_size 16 and 64, agrees to about
 one bf16 ulp (online softmax per 16 keys, split-KV ranges merged by the
 lse identity, another summation order): |diff| <= 2^-7 * |ref| + 2e-3,
@@ -103,9 +105,8 @@ def test_tim_tc_kernel_equals_plain(dev, m, k, n, splits, need_t):
     assert tk.tim_path("single", False, None, m, n, k) == "tc"
     assert tk.tim_tc_splits(m, n, k, tk.sm_count(dev)) == splits
     gen = torch.Generator(device=dev).manual_seed(m + k + n)
-    # activation codes over the int8 range (but -128, whose |x| the
-    # kernel saturates), ternary weight codes
-    x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+    # activation codes over the whole int8 range, ternary weight codes
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
                       dtype=torch.int8)
     w = torch.randint(-1, 2, (k, n), generator=gen, device=dev,
                       dtype=torch.int8)
@@ -149,6 +150,138 @@ def test_tim_dp4a_path_serves_what_tc_does_not_take(dev):
         tk.tim_st_launch(xm.view(16, 16), w[:16, :16].contiguous(),
                          s[:16], s[:16], i1.reshape(1), mode="single",
                          packed=False, need_t=False)
+
+
+def _w_operand(gen, dev, k, n, packed):
+    """Ternary codes, or packed bytes drawn at random, so that all four
+    2-bit fields occur, the reserved 0b10 (decodes to 0) included."""
+    if packed:
+        return torch.randint(0, 256, (k // 4, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    return torch.randint(-1, 2, (k, n), generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def _tim_call(mode, x, wd, w1, w2, isc, *, packed, need_t, n_max, bits,
+              out_dtype):
+    """The wrapper of ``mode`` (the one the engine calls) and its
+    counter."""
+    kw = dict(packed=packed, need_t=need_t, n_max=n_max,
+              out_dtype=out_dtype)
+    if mode == "single":
+        return tk.tim_matmul_single(x, wd, w1, w2, isc[0], **kw), \
+            "tim_single_packed" if packed else "tim_single"
+    if mode == "phases":
+        return tk.tim_matmul_fused(x, wd, w1, w2, isc[0], isc[1], **kw), \
+            "tim_two_phase"
+    return tk.tim_matmul_bitserial(x, wd, w1, w2, isc[0], bits=bits,
+                                   **kw), "tim_bitserial"
+
+
+def _tim_check(mode, x, wd, w1, w2, isc, *, packed, need_t, n_max=None,
+               bits=0):
+    """Every output type: the wrapper's launch equals the plain version
+    bit for bit, one launch counted, on the path ``tim_path`` names."""
+    m, k = x.shape
+    path = tk.tim_path(mode, packed, n_max, m, wd.shape[1], k)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        reset_launch_counts()
+        out, counter = _tim_call(mode, x, wd, w1, w2, isc, packed=packed,
+                                 need_t=need_t, n_max=n_max, bits=bits,
+                                 out_dtype=out_dtype)
+        counts = launch_counts()
+        assert counts[counter] == 1
+        assert counts.get(counter + "_tc", 0) == (path == "tc")
+        ref = tk.tim_st_plain(x, wd, w1, w2, isc, mode=mode, packed=packed,
+                              need_t=need_t, n_max=n_max, bits=bits,
+                              out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == out_dtype
+        assert torch.equal(out, ref)
+    return path
+
+
+@pytest.mark.parametrize("mode,packed", [
+    ("single", False), ("single", True), ("phases", False),
+    ("phases", True), ("bits", False), ("bits", True)])
+@pytest.mark.parametrize("n_max", [None, 8])
+@pytest.mark.parametrize("need_t", [False, True])
+@pytest.mark.parametrize("m,k,n", [(70, 208, 272), (70, 200, 132)],
+                         ids=["tc_shape", "dp4a_shape"])
+def test_tim_every_path_full_int8_range(dev, mode, packed, n_max, need_t,
+                                        m, k, n):
+    """F3: x over the whole int8 range, -128 in every row: each TiM
+    path (tc and dp4a) equals the plain version, which takes |x| and
+    max(-x, 0) in int8 as the Pallas kernels do."""
+    gen = torch.Generator(device=dev).manual_seed(k + n + len(mode))
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    x[:, ::7] = -128
+    wd = _w_operand(gen, dev, k, n, packed)
+    w1 = torch.rand(n, generator=gen, device=dev)
+    w2 = torch.rand(n, generator=gen, device=dev)
+    isc = torch.rand(2 if mode == "phases" else 1, generator=gen,
+                     device=dev)
+    path = _tim_check(mode, x, wd, w1, w2, isc, packed=packed,
+                      need_t=need_t, n_max=n_max, bits=4)
+    tc = n_max is None and k % 16 == 0 and n % 16 == 0 and \
+        not (mode == "single" and packed)
+    assert path == ("tc" if tc else "dp4a")
+
+
+# rows 3 and 4 on the tc kernel at its tile edges (128 rows, 128 K codes
+# a stage, column tiles of 64 (two-phase) or 128 (bit-serial)): (M, K,
+# N, K slices of the two-phase grid, of the bit-serial grid)
+TC34_CASES = [
+    (1, 1040, 400, 9, 9),       # one row; N and K not multiples of 128
+    (70, 208, 272, 2, 2),
+    (300, 528, 4224, 1, 1),     # M > 128: three row tiles, fused
+    (128, 1040, 8448, 1, 1),
+    (128, 4096, 256, 32, 32),   # the served shapes
+    (128, 4096, 4096, 2, 4),
+    (128, 4096, 13696, 1, 1),
+    (128, 13696, 4096, 2, 4),
+]
+
+
+@pytest.mark.parametrize("mode", ["phases", "bits"])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("need_t", [True, False])
+@pytest.mark.parametrize("m,k,n,splits_phases,splits_bits", TC34_CASES)
+def test_tim_tc_rows_3_4_equal_plain(dev, m, k, n, splits_phases,
+                                     splits_bits, need_t, packed, mode):
+    assert tk.tim_path(mode, packed, None, m, n, k) == "tc"
+    assert tk.tim_tc_splits(m, n, k, tk.sm_count(dev), tk.TC_TILE_N[mode]) \
+        == (splits_phases if mode == "phases" else splits_bits)
+    gen = torch.Generator(device=dev).manual_seed(m + k + n + packed)
+    # two-phase: x over the whole int8 range; bit-serial: int-k codes
+    bits = 2 + (m + k + n) % 6
+    lo, hi = (-128, 128) if mode == "phases" else (0, 1 << bits)
+    x = torch.randint(lo, hi, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    wd = _w_operand(gen, dev, k, n, packed)
+    w1 = torch.rand(n, generator=gen, device=dev)
+    w2 = torch.rand(n, generator=gen, device=dev)
+    isc = torch.rand(2 if mode == "phases" else 1, generator=gen,
+                     device=dev)
+    _tim_check(mode, x, wd, w1, w2, isc, packed=packed, need_t=need_t,
+               bits=bits)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("m,k,n", [(70, 208, 272), (128, 4096, 4096)])
+def test_tim_tc_bitserial_every_width(dev, bits, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    x = torch.randint(0, 1 << bits, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    x[:, 0] = (1 << bits) - 1                    # the widest code
+    wd = _w_operand(gen, dev, k, n, True)
+    w1 = torch.rand(n, generator=gen, device=dev)
+    w2 = torch.rand(n, generator=gen, device=dev)
+    step = torch.rand(1, generator=gen, device=dev)
+    for need_t in (False, True):
+        assert _tim_check("bits", x, wd, w1, w2, step, packed=True,
+                          need_t=need_t, bits=bits) == "tc"
 
 
 KV_MODES = ["bf16", "int8", "f32"]

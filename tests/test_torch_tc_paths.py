@@ -3,7 +3,8 @@
 ``tim_path`` / ``tim_tc_splits`` (kernels/tim_matmul.py) and
 ``flash_path`` (kernels/flash_attention.py) are plain functions of the
 call's mode, types and shapes: which Hopper kernel serves a CUDA call,
-and how the s8 tensor-core TiM kernel cuts K.  The kernels themselves
+and how the s8 tensor-core TiM kernel cuts K (its two-phase instance
+has column tiles of 64, the others of 128).  The kernels themselves
 run only on the card (tests/test_torch_cuda.py); here CPU tensors must
 still run the plain versions, with no launch counted.
 """
@@ -13,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro_torch.core.packing import pack2b  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402,E501
 from repro_torch.kernels import tim_matmul as tk  # noqa: E402
@@ -28,11 +30,23 @@ H100_SMS = 132     # streaming multiprocessors of an H100 SXM
     ("single", False, None, 128, 4096, 13696, "tc"),
     ("single", False, None, 1, 400, 1040, "tc"),
     ("single", False, None, 300, 4224, 528, "tc"),
+    # two-phase (policy C) and bit-serial (policy A), dense or packed
+    ("phases", False, None, 128, 4096, 4096, "tc"),
+    ("bits", False, None, 128, 4096, 4096, "tc"),
+    ("phases", True, None, 128, 13696, 4096, "tc"),
+    ("phases", True, None, 128, 4096, 13696, "tc"),
+    ("phases", True, None, 70, 272, 1040, "tc"),
+    ("bits", True, None, 128, 256, 4096, "tc"),
+    ("bits", True, None, 300, 4224, 528, "tc"),
+    ("phases", True, None, 128, 130, 4096, "dp4a"),      # N % 16 != 0
+    ("bits", True, None, 128, 256, 200, "dp4a"),         # K % 16 != 0
     # what the tc kernel does not take
     ("single", False, 8, 128, 4096, 4096, "dp4a"),       # the ADC clamp
+    ("phases", True, 8, 128, 4096, 4096, "dp4a"),
+    ("phases", False, 8, 128, 4096, 4096, "dp4a"),
+    ("bits", True, 8, 128, 4096, 4096, "dp4a"),
     ("single", True, None, 128, 4096, 4096, "dp4a"),     # packed weights
-    ("phases", False, None, 128, 4096, 4096, "dp4a"),
-    ("bits", False, None, 128, 4096, 4096, "dp4a"),
+    ("single", True, None, 128, 13696, 4096, "dp4a"),
     ("single", False, None, 128, 130, 4096, "dp4a"),     # N % 16 != 0
     ("single", False, None, 128, 256, 200, "dp4a"),      # K % 16 != 0
     ("single", False, None, 4, 8, 8, "dp4a"),            # N, K < 16
@@ -55,7 +69,27 @@ def test_tim_path_rule(mode, packed, n_max, m, n, k, path):
 def test_tim_tc_splits_rule(m, n, k, splits):
     got = tk.tim_tc_splits(m, n, k, H100_SMS)
     assert got == splits
+    assert got == tk.tim_tc_splits(m, n, k, H100_SMS, tk.TC_TILE_N["bits"])
     tiles = -(-m // tk.TC_TILE) * -(-n // tk.TC_TILE)
+    assert got == 1 or tiles * got <= H100_SMS    # one wave
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (128, 13696, 4096, 1),     # 214 column tiles of 64: fused
+    (128, 4224, 1040, 1),      # 66 tiles: the smallest fused grid
+    (128, 4160, 1040, 2),      # 65 tiles: K split
+    (128, 4096, 4096, 2),      # 64 tiles x 2 slices = 128 blocks
+    (128, 4096, 13696, 2),
+    (128, 256, 4096, 32),      # 4 tiles: one slice per K tile
+    (1, 400, 1040, 9),         # 7 tiles, 9 K tiles
+    (300, 2112, 528, 1),       # 3 row tiles x 33 column tiles
+])
+def test_tim_tc_splits_rule_two_phase(m, n, k, splits):
+    tile_n = tk.TC_TILE_N["phases"]
+    assert tile_n == 64
+    got = tk.tim_tc_splits(m, n, k, H100_SMS, tile_n)
+    assert got == splits
+    tiles = -(-m // tk.TC_TILE) * -(-n // tile_n)
     assert got == 1 or tiles * got <= H100_SMS    # one wave
 
 
@@ -95,6 +129,67 @@ def test_tim_single_cpu_runs_plain_and_counts_nothing(need_t, out_dtype):
     if need_t:
         ref = ref + (w1 - w2) * 0.5 * t.float()
     assert torch.equal(got, (i1 * ref).to(out_dtype))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("need_t", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_tim_two_phase_cpu_runs_plain_and_counts_nothing(packed, need_t,
+                                                         out_dtype):
+    rng = np.random.default_rng(6)
+    m, k, n = 33, 64, 48          # a tc-eligible shape
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-1, 2, (k, n)).astype(np.int8))
+    wd = pack2b(w, axis=0) if packed else w
+    w1 = torch.from_numpy(rng.random(n).astype(np.float32))
+    w2 = torch.from_numpy(rng.random(n).astype(np.float32))
+    i1, i2 = torch.tensor(0.25), torch.tensor(0.5)
+    assert tk.tim_path("phases", packed, None, m, n, k) == "tc"
+    reset_launch_counts()
+    got = tk.tim_matmul_fused(x, wd, w1, w2, i1, i2, packed=packed,
+                              need_t=need_t, out_dtype=out_dtype)
+    assert not any(launch_counts().values())
+    # the plain version's phases by hand, each rounded before p1 - p2
+    xl, wl = x.long(), w.long()
+    pos, neg = xl.clamp(min=0), (-xl).clamp(min=0)
+    neg[x == -128] = 0                 # -(-128) wraps in int8
+
+    def phase(a, i):
+        ref = (w1 + w2) * 0.5 * (a @ wl).float()
+        if need_t:
+            ref = ref + (w1 - w2) * 0.5 * (a @ wl.abs()).float()
+        return (i * ref).to(out_dtype)
+    want = (phase(pos, i1) - phase(neg, i2)).to(out_dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("need_t", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 7])
+def test_tim_bitserial_cpu_runs_plain_and_counts_nothing(packed, need_t,
+                                                         bits):
+    rng = np.random.default_rng(bits)
+    m, k, n = 20, 96, 32          # a tc-eligible shape
+    x = torch.from_numpy(rng.integers(0, 1 << bits, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-1, 2, (k, n)).astype(np.int8))
+    wd = pack2b(w, axis=0) if packed else w
+    w1 = torch.from_numpy(rng.random(n).astype(np.float32))
+    w2 = torch.from_numpy(rng.random(n).astype(np.float32))
+    step = torch.tensor(0.0625)
+    assert tk.tim_path("bits", packed, None, m, n, k) == "tc"
+    reset_launch_counts()
+    got = tk.tim_matmul_bitserial(x, wd, w1, w2, step, bits=bits,
+                                  packed=packed, need_t=need_t)
+    assert not any(launch_counts().values())
+    # sum_b (plane_b @ W) << b, by hand: the codes' single product
+    s = sum(((x.long() >> b) & 1) @ w.long() << b for b in range(bits))
+    t = sum(((x.long() >> b) & 1) @ w.long().abs() << b
+            for b in range(bits))
+    assert torch.equal(s, x.long() @ w.long())
+    ref = (w1 + w2) * 0.5 * s.float()
+    if need_t:
+        ref = ref + (w1 - w2) * 0.5 * t.float()
+    assert torch.equal(got, step * ref)
 
 
 @pytest.mark.parametrize("d", [64, 128])
