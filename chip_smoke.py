@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card::
     python3 chip_smoke.py   # build, kernel phases, sharded and flash
                             # attention, engine runs
     python3 chip_smoke.py --ab PARENT   # A/B against the checkout PARENT:
-                            # flash and TiM rows 3-4 phases, policies
-                            # B, C, A, in turns
+                            # flash and TiM rows 2-4 phases, policies
+                            # B, C, A, D, in turns
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -26,12 +26,18 @@ Phases (any failure exits non-zero; nothing is caught):
    torch.profiler (``device_ms``, the kernels alone), beside the plain
    version, the work's bound on the card and, where one PyTorch call
    computes the same function, that call; the TiM lines name the kernel
-   that served (``tim_path``: the s8 tensor-core ``tc`` kernel without
-   ``n_max`` for single-phase dense, two-phase and bit-serial weights,
-   ``dp4a`` otherwise; rows 3 and 4 must take ``tc`` at the four shapes
-   and ``dp4a`` at ``n_max=8``) and the tc kernel's K slices; rows 3
-   and 4 are served packed, and their dense instance is also held and
-   timed at (4096, 13696);
+   that served (``tim_path``: without ``n_max``, the swap-AB s8
+   ``wgmma`` kernel for the single-phase product of packed weights
+   without T (row 2), the s8 ``mma.sync`` ``tc`` kernel for every
+   other product, ``dp4a`` with ``n_max``; every row must take the path
+   the rule names at the four shapes and ``dp4a`` at ``n_max=8``) and
+   the kernel's K slices; rows 3 and 4 are served packed, and their
+   dense instance is also held and timed at (4096, 13696); row 2 is
+   also held at M = 8 and 32 (the packed buckets) at the four shapes,
+   in bf16 and f32, and timed at M = 8 and 32 for (4096, 13696); on
+   its inputs the ``tc`` instance and the ``dp4a`` kernel that served
+   row 2 before are timed too, and ``torch._int_mm`` on the unpacked
+   codes (S only) is its library call;
 4. sharded attention (``repro_torch.distrib.decode_attn``, the
    compacted-partials kernel) over a bf16 pool of 262,144 blocks of 16
    (chatglm3-6b attention: H=32, Hk=2, D=128) cut into n = 4 contiguous
@@ -67,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught):
    on >= 3/4 of the slots), and one step is traced with torch.profiler
    (device time by kernel beside the step's wall time); every
    single-phase launch of policy B, two-phase launch of policy C and
-   bit-serial launch of policy A must have taken the tc kernel;
+   bit-serial launch of policy A must have taken the tc kernel, and
+   every single-phase packed launch of policy D the wgmma kernel;
 7. layout runs under policy D at full depth, on its params and prompts
    with 32 new tokens each (with 16, the 12 requests never hold more
    than 123 blocks, and a pool at the hard floor would not preempt):
@@ -225,61 +232,98 @@ def tim_phase(name, spec, gen, iters):
     import torch
     from repro_torch.kernels import tim_matmul as tk
     mode, packed, bits, need_t, _ = spec
-    cases = [(s, None, packed) for s in TIM_SHAPES] + \
-        [((4096, 4096), 8, packed)]
+    row2 = mode == "single" and packed
+    cases = [(128, s, None, packed) for s in TIM_SHAPES] + \
+        [(128, (4096, 4096), 8, packed)]
     if mode != "single":
         # served packed; the dense instance is held and timed too
-        cases.append(((4096, 13696), None, False))
+        cases.append((128, (4096, 13696), None, False))
+    if row2:
+        # the packed buckets' small M
+        cases += [(m, (4096, 13696), None, True) for m in (8, 32)]
+        held_only = [(m, s) for m in (8, 32) for s in TIM_SHAPES
+                     if s != (4096, 13696)]
+        for m, (k, n) in held_only:
+            tim_exact(name, m, k, n, spec, packed, None, gen,
+                      (torch.bfloat16, torch.float32))
     rows = []
-    for (k, n), n_max, pk in cases:
-        m = 128
-        x, w, wp, w1, w2, isc = tim_inputs(m, k, n, mode, bits, gen)
+    for m, (k, n), n_max, pk in cases:
+        x, w, wp, w1, w2, isc, err = tim_exact(
+            name, m, k, n, spec, pk, n_max, gen,
+            (torch.bfloat16, torch.float32) if row2 else (torch.bfloat16,))
         wd = wp if pk else w
+        path = tk.tim_path(mode, pk, n_max, m, n, k, need_t=need_t)
+        want = "dp4a" if n_max is not None else \
+            "wgmma" if row2 and not need_t else "tc"
+        if path != want:
+            raise AssertionError(f"{name} M={m} K={k} N={n} n_max={n_max}: "
+                                 f"served by {path}, not {want}")
         kw = dict(mode=mode, packed=pk, need_t=need_t, n_max=n_max,
                   bits=bits, out_dtype=torch.bfloat16)
-        out = tk.tim_st_launch(x, wd, w1, w2, isc, **kw)
-        ref = tk.tim_st_plain(x, wd, w1, w2, isc, **kw)
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(out, ref))
-        err = float((out.float() - ref.float()).abs().max())
-        if not exact:
-            raise AssertionError(f"{name} K={k} N={n} n_max={n_max}: "
-                                 f"kernel != plain (max |diff| {err})")
-        path = tk.tim_path(mode, pk, n_max, m, n, k)
-        if mode != "single" and path != ("dp4a" if n_max else "tc"):
-            raise AssertionError(f"{name} K={k} N={n} n_max={n_max}: "
-                                 f"served by {path}")
-        ms = time_ms(lambda: tk.tim_st_launch(x, wd, w1, w2, isc, **kw),
-                     iters)
-        dev_ms = device_ms(lambda: tk.tim_st_launch(x, wd, w1, w2, isc,
-                                                    **kw), TIM_NAMES, iters)
+
+        def timed(p):
+            def call():
+                return tk.tim_st_launch(x, wd, w1, w2, isc, path=p, **kw)
+            return time_ms(call, iters), device_ms(call, TIM_NAMES, iters)
+        ms, dev_ms = timed(None)
         plain_ms = time_ms(lambda: tk.tim_st_plain(x, wd, w1, w2, isc,
                                                    **kw), max(2, iters // 4))
         lib_ms = None
-        if name == "tim_single" and n_max is None:
+        if mode == "single" and n_max is None and m > 16:
+            # S of the (unpacked) codes: torch._int_mm takes M > 16
             lib_ms = time_ms(lambda: torch._int_mm(x, w), iters)
+        # row 2: the mma.sync instance and the dp4a kernel on its inputs
+        other = {p: timed(p) for p in ("tc", "dp4a")} \
+            if row2 and path == "wgmma" else {}
         t_eff = need_t or n_max is not None
         passes = {"single": 1, "phases": 2,
                   "bits": bits if n_max is not None else 1}[mode]
         ops = 2.0 * m * n * k * passes * (2 if t_eff else 1)
         nbytes = m * k + wd.numel() + 8 * n + 2 * m * n
         b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-        row = dict(K=k, N=n, n_max=n_max, packed=pk, path=path,
-                   bit_exact=exact,
-                   max_abs_err=err, ms=ms, device_ms=dev_ms,
+        row = dict(M=m, K=k, N=n, n_max=n_max, packed=pk, path=path,
+                   bit_exact=True, max_abs_err=err, ms=ms, device_ms=dev_ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by)
-        splits = tk.tim_tc_splits(m, n, k, tk.sm_count(x.device),
-                                  tk.TC_TILE_N[mode]) \
-            if path == "tc" else None
+        splits = None
+        if path == "tc":
+            splits = tk.tim_tc_splits(m, n, k, tk.sm_count(x.device),
+                                      tk.TC_TILE_N[mode])
+        elif path == "wgmma":
+            splits = tk.tim_wg_splits(m, n, k, tk.sm_count(x.device))
         log(f"[kernel {name}] M={m} K={k} N={n} n_max={n_max} packed={pk} "
-            f"path={path} splits={splits} bit_exact={exact} "
+            f"path={path} splits={splits} bit_exact=True "
             f"max_abs_err={err} "
             f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})")
+            f"library_ms={lib_ms} bound_ms={b_ms:.5f} ({b_by})"
+            + "".join(f" {p}_ms={t[0]:.4f} {p}_device_ms={t[1]}"
+                      for p, t in other.items()))
         rows.append(row)
-        del x, w, wp, wd, out, ref
+        del x, w, wp, wd
     return rows
+
+
+def tim_exact(name, m, k, n, spec, pk, n_max, gen, dtypes):
+    """Seeded inputs of one TiM case, held bit for bit against the plain
+    version in each output type; returns them and the max |diff|."""
+    import torch
+    from repro_torch.kernels import tim_matmul as tk
+    mode, _, bits, need_t, _ = spec
+    x, w, wp, w1, w2, isc = tim_inputs(m, k, n, mode, bits, gen)
+    wd = wp if pk else w
+    err = 0.0
+    for dt in dtypes:
+        kw = dict(mode=mode, packed=pk, need_t=need_t, n_max=n_max,
+                  bits=bits, out_dtype=dt)
+        out = tk.tim_st_launch(x, wd, w1, w2, isc, **kw)
+        ref = tk.tim_st_plain(x, wd, w1, w2, isc, **kw)
+        torch.cuda.synchronize()
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name} M={m} K={k} N={n} n_max={n_max} "
+                                 f"{dt}: kernel != plain (max |diff| "
+                                 f"{err})")
+    return x, w, wp, w1, w2, isc, err
 
 
 # ---------------------------------------------------------------------------
@@ -993,11 +1037,14 @@ def engine_run(label, pol, layers, seed, keep=False):
     if missing:
         raise AssertionError(f"policy {label}: kernels never launched on "
                              f"the served path: {missing}")
-    for kname in ("tim_single", "tim_two_phase", "tim_bitserial"):
-        if kname in need and counts[kname + "_tc"] != counts[kname]:
+    for kname, path in (("tim_single", "tc"), ("tim_two_phase", "tc"),
+                        ("tim_bitserial", "tc"),
+                        ("tim_single_packed", "wgmma")):
+        if kname in need and counts[f"{kname}_{path}"] != counts[kname]:
             raise AssertionError(f"policy {label}: {counts[kname]} {kname} "
-                                 f"launches, only {counts[kname + '_tc']} "
-                                 f"on the tc path")
+                                 f"launches, only "
+                                 f"{counts[f'{kname}_{path}']} on the "
+                                 f"{path} path")
     if st["prefix_hit_tokens"] <= 0 or st["cow_copies"] <= 0:
         raise AssertionError(f"policy {label}: prefix reuse / copy-on-write "
                              f"did not fire: {st}")
@@ -1160,8 +1207,8 @@ def f1_runs(params, cfg, seed, ref):
         raise AssertionError("; ".join(failures))
 
 
-# one turn of the A/B: the flash phase, the TiM phases of rows 3 and 4
-# and the engine runs of policies B, C and A of the tree's own
+# one turn of the A/B: the flash phase, the TiM phases of rows 2, 3 and
+# 4 and the engine runs of policies B, C, A and D of the tree's own
 # chip_smoke.py, in a process of its own.  It calls that tree's
 # flash_phase(gen, iters), tim_phase(name, spec, gen, iters),
 # engine_run(label, policy, layers, seed), TIM_KERNELS and POLICIES, so
@@ -1178,20 +1225,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(seed)
 cs.flash_phase(gen, iters)
-for name in ("tim_two_phase", "tim_bitserial"):
+for name in ("tim_single_packed", "tim_two_phase", "tim_bitserial"):
     cs.tim_phase(name, cs.TIM_KERNELS[name], gen, iters)
-for label in ("B", "C", "A"):
+for label in ("B", "C", "A", "D"):
     cs.engine_run(label, cs.POLICIES[label], layers, seed)
 """
-AB_LINES = ("[kernel flash", "[kernel tim_two_phase", "[kernel tim_bitserial",
-            "[run B", "[engine B", "[profile B", "[run C", "[engine C",
-            "[profile C", "[run A", "[engine A", "[profile A")
+AB_LINES = ("[kernel flash", "[kernel tim_single_packed",
+            "[kernel tim_two_phase", "[kernel tim_bitserial") + tuple(
+    f"[{kind} {label}" for label in "BCAD"
+    for kind in ("run", "engine", "profile"))
 
 
 def ab_runs(parent: str, args) -> None:
     """Another checkout (``parent``) and this one in turns: parent,
-    change, change, parent; each turn prints its flash, TiM rows 3-4
-    and policy B, C, A lines with an ``[ab <turn> <tree>]`` prefix."""
+    change, change, parent; each turn prints its flash, TiM rows 2-4
+    and policy B, C, A, D lines with an ``[ab <turn> <tree>]``
+    prefix."""
     turns = [("parent", parent), ("change", HERE), ("change", HERE),
              ("parent", parent)]
     for i, (label, tree) in enumerate(turns):
@@ -1216,10 +1265,10 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--ab", metavar="PARENT",
                     help="instead of the smoke run: the flash phase, the "
-                         "two-phase and bit-serial TiM phases and the "
-                         "engine runs of policies B, C and A of the "
-                         "checkout PARENT and of this one, in turns "
-                         "(parent, change, change, parent)")
+                         "single-phase packed, two-phase and bit-serial "
+                         "TiM phases and the engine runs of policies B, "
+                         "C, A and D of the checkout PARENT and of this "
+                         "one, in turns (parent, change, change, parent)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1247,7 +1296,8 @@ def main(argv=None) -> int:
         for line in _build.build_log(name).splitlines():
             if "Function properties for" in line:
                 fn = line.split("Function properties for")[-1].strip()
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or \
+                    "Performance Loss" in line:  # wgmma serialized
                 log(f"[ptxas {name}] {fn}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1279,7 +1329,7 @@ def main(argv=None) -> int:
     kernels = []
     for name, spec in TIM_KERNELS.items():
         r = next(x for x in tim_rows[name]
-                 if (x["K"], x["N"]) == (4096, 13696)
+                 if (x["M"], x["K"], x["N"]) == (128, 4096, 13696)
                  and x["packed"] == spec[1] and x["n_max"] is None)
         kernels.append(dict(
             name=name, route="cuda",

@@ -654,39 +654,12 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
-// query (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled",
-                                     reinterpret_cast<void**>(&fn), 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                            reinterpret_cast<void**>(&fn), cudaEnableDefault,
-                            &found);
-#endif
-    if (found != cudaDriverEntryPointSuccess) fn = nullptr;
-  }
-  return fn;
-}
-
 // a bf16 (B, S, heads, D) tensor as a 4-d map, boxes of 64 columns x
 // `rows` positions of one head, 128-byte swizzled; positions past S read
 // as zeros
 bool tensor_map(CUtensorMap* map, const void* p, int B, int S, int heads,
                 int D, int rows) {
-  const EncodeTiled enc = encode_tiled();
+  const tc::EncodeTiled enc = tc::encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};

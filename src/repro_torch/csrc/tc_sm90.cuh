@@ -2,9 +2,12 @@
 // 16-byte copies, ldmatrix, bf16 mma.sync m16n8k16 with f32 accumulators,
 // s8 mma.sync m16n8k32 with s32 accumulators, the XOR swizzle of 16-byte
 // chunks in shared memory, and the Hopper pieces: mbarriers, TMA tensor
-// loads, and bf16 wgmma (f32 accumulators) from 128-byte-swizzled shared
-// memory descriptors, with its fence / commit / wait.
+// loads (and, on the host, cuTensorMapEncodeTiled), bf16 wgmma (f32
+// accumulators) from 128-byte-swizzled shared memory descriptors, s8
+// wgmma (s32 accumulators) with A from registers, and wgmma's fence /
+// commit / wait.
 #pragma once
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -156,6 +159,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// TMA: one box of a 2-d tensor map (coordinates innermost first)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// barrier `id` (1..15) over the first `threads` threads of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle (the TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B layout: rows of 128 bytes, 16-byte chunk c
 // of row r at c ^ (r & 7), 8-row groups of 1024 bytes; tiles 1024-byte
@@ -197,6 +215,11 @@ __device__ __forceinline__ void wg_pin(float* r) {
 }
 template <int N>
 __device__ __forceinline__ void wg_pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_pin(int* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -254,10 +277,121 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// One warpgroup: D (64 x N s32) += A (64 x 32 s8, registers: the
+// mma.sync m16n8k32 A fragment of each warp's 16 rows, a0 / a1 rows g /
+// g + 8 at K 4t .. 4t + 3, a2 / a3 the same at K 16 + 4t ..) * B (32 x N
+// s8, shared memory, K-major: the 32 K bytes of one column contiguous,
+// 128-byte swizzled), exact.  Thread (warp w, lane l) holds rows 16w +
+// l/4 (+8) and columns 8j + 2(l%4) (+1) as d[4j .. 4j+3].  N = 8, 16, 32,
+// 64 or 128.
+#define TC_I4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define TC_I8(i) TC_I4(i), TC_I4(i + 4)
+#define TC_I16(i) TC_I8(i), TC_I8(i + 8)
+#define TC_I32(i) TC_I16(i), TC_I16(i + 16)
+#define TC_I64 TC_I32(0), TC_I32(32)
+#define TC_R4 "%0, %1, %2, %3"
+#define TC_R8 TC_R4 ", %4, %5, %6, %7"
+#define TC_R16 TC_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a,
+                                            uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<8>(int* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {" TC_R4
+      "}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : TC_I4(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<16>(int* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {" TC_R8
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : TC_I8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<32>(int* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" TC_R16
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : TC_I16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<64>(int* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" TC_R32
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : TC_I32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(int* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" TC_R64
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : TC_I64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef TC_D8
 #undef TC_D32
 #undef TC_D64
 #undef TC_R32
 #undef TC_R64
+#undef TC_I4
+#undef TC_I8
+#undef TC_I16
+#undef TC_I32
+#undef TC_I64
+#undef TC_R4
+#undef TC_R8
+#undef TC_R16
+
+// ---------------------------------------------------------------------------
+// host: cuTensorMapEncodeTiled, found through the CUDA runtime's
+// entry-point query (no link against libcuda)
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled",
+                                     reinterpret_cast<void**>(&fn), 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                            reinterpret_cast<void**>(&fn), cudaEnableDefault,
+                            &found);
+#endif
+    if (found != cudaDriverEntryPointSuccess) fn = nullptr;
+  }
+  return fn;
+}
 
 }  // namespace tc

@@ -1,8 +1,9 @@
 // TiM ternary matmul for Hopper (sm_90a): one templated kernel for the
 // single-phase, two-phase and bit-serial products, over dense int8 or
 // 2-bit packed ternary weights, with the optional per-L=16-block ADC
-// clamp (n_max); and an s8 tensor-core kernel for the products without
-// the clamp.
+// clamp (n_max); an s8 tensor-core kernel for the products without the
+// clamp; and a swap-AB s8 wgmma kernel for the single-phase product of
+// packed weights without T.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tim_matmul.py:
 //   tim_matmul_pallas                   (_tim_kernel, dense)
@@ -60,6 +61,33 @@
 // zeroed workspace by integer atomics (exact, order-free), and
 // tim_epilogue finishes.
 //
+// tim_wg (tim_wg_launch; row 2: single-phase, packed W, no T, no clamp,
+// K % 16 == 0, N % 16 == 0): out^T = W^T x^T on wgmma, the only route to
+// the card's full s8 rate.  For 8-bit types wgmma takes both operands
+// K-major; swapping A and B makes that free on both sides.  A = W^T
+// comes from registers: an s8 A-fragment register holds 4 consecutive K
+// codes of one wgmma row, here one W column, which is exactly one packed
+// byte decoded (decode_b, two __byte_perm), so the decode needs no
+// shared-memory pass and no transpose.  B = x^T comes from shared
+// memory: x (M, K) row-major is already K-major for B, and its TMA box
+// of 128 K codes is one 128-byte swizzle row.  The token count is
+// wgmma's N (the token tile NT = 8 .. 128, the smallest power of two
+// that holds M, 128-row tiles above), so small M wastes no 64-row tile.
+// One block of 2 consumer warpgroups (64 W columns each, as wgmma rows)
+// and a producer warp per 128 columns, NT tokens and a slice of K: the
+// producer's lane 0 keeps a ring of stages (x tile + packed W tile,
+// 128-byte swizzled) full by TMA, with full / empty mbarriers; each
+// consumer warpgroup issues 4 wgmma m64nNTk32 per stage behind the
+// previous stage's, waits for that stage's alone, and decodes the next
+// stage's fragments while its own run.  Rows of x past M
+// and K past the end are zero-filled by the TMA and never stored.  The
+// epilogue goes through an output tile in shared memory, so out is
+// written in 16-byte rows; where the column tiles do not fill the card
+// the caller cuts K into slices (int32 atomics into a zeroed workspace,
+// then tim_epilogue), as for tim_tc.  Bound: s8 operations at M = 128 (14.4
+// G at (4096, 13696): 7.3 us), the 14 MB of packed W (4.2 us) at small
+// M.
+//
 // tim_accumulate + tim_epilogue (everything else): two launches.  Pass
 // 1: a 64x64 output tile per block of 256 threads, each thread 4x4
 // outputs, over one slice of K (the TPU grid's sequential K axis and
@@ -72,11 +100,13 @@
 // 32-bit word; packed weights are unpacked to int8 as the tile lands.
 // Products are __dp4a (4 int8 MACs per instruction); phase masks, |x|,
 // |W| and bit planes are per-byte SIMD ops on the 32-bit words.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "tc_sm90.cuh"
 
@@ -340,6 +370,22 @@ __global__ void tim_epilogue(const int* __restrict__ acc,
   store(out + idx, v);
 }
 
+// Pass 2 as a launch (after pass 1 or a K-split tensor-core product)
+template <int MODE>
+int launch_epilogue(const int* acc, const float* w1, const float* w2,
+                    const float* iscale, void* out, int M, int N,
+                    int need_t, bool out_bf16, cudaStream_t st) {
+  const size_t total = (size_t)M * N;
+  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+  if (out_bf16)
+    tim_epilogue<MODE, __nv_bfloat16><<<blocks, 256, 0, st>>>(
+        acc, w1, w2, iscale, static_cast<__nv_bfloat16*>(out), M, N, need_t);
+  else
+    tim_epilogue<MODE, float><<<blocks, 256, 0, st>>>(
+        acc, w1, w2, iscale, static_cast<float*>(out), M, N, need_t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct Args {
   const int8_t* x;
   const uint8_t* w;
@@ -379,17 +425,8 @@ void launch_mode(const Args& a, bool packed, const float* w1, const float* w2,
     launch_clamp<MODE, true>(a, st);
   else
     launch_clamp<MODE, false>(a, st);
-  const size_t total = (size_t)a.M * a.N;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  const int need_t = a.need_t || a.n_max >= 0;
-  if (out_bf16)
-    tim_epilogue<MODE, __nv_bfloat16><<<blocks, threads, 0, st>>>(
-        a.acc, w1, w2, iscale, static_cast<__nv_bfloat16*>(out), a.M, a.N,
-        need_t);
-  else
-    tim_epilogue<MODE, float><<<blocks, threads, 0, st>>>(
-        a.acc, w1, w2, iscale, static_cast<float*>(out), a.M, a.N, need_t);
+  launch_epilogue<MODE>(a.acc, w1, w2, iscale, out, a.M, a.N,
+                        a.need_t || a.n_max >= 0, out_bf16, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -680,16 +717,8 @@ int go_tc_out(const int8_t* x, const uint8_t* w, const float* w1,
     const int e = go_tc<MODE, PACKED, NEED_T, true, float>(
         x, w, w1, w2, iscale, acc, out, M, N, K, splits, st);
     if (e != 0) return e;
-    const size_t total = (size_t)M * N;
-    const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-    if (out_bf16)
-      tim_epilogue<MODE, __nv_bfloat16><<<blocks, 256, 0, st>>>(
-          acc, w1, w2, iscale, static_cast<__nv_bfloat16*>(out), M, N,
-          NEED_T);
-    else
-      tim_epilogue<MODE, float><<<blocks, 256, 0, st>>>(
-          acc, w1, w2, iscale, static_cast<float*>(out), M, N, NEED_T);
-    return static_cast<int>(cudaGetLastError());
+    return launch_epilogue<MODE>(acc, w1, w2, iscale, out, M, N, NEED_T,
+                                 out_bf16, st);
   }
   return out_bf16 ? go_tc<MODE, PACKED, NEED_T, false, __nv_bfloat16>(
                         x, w, w1, w2, iscale, acc, out, M, N, K, 1, st)
@@ -719,6 +748,263 @@ int go_tc_p(const int8_t* x, const uint8_t* w, const float* w1,
                                       K, need_t, splits, out_bf16, st)
                 : go_tc_t<MODE, false>(x, w, w1, w2, iscale, acc, out, M,
                                        N, K, need_t, splits, out_bf16, st);
+}
+
+// ---------------------------------------------------------------------------
+// swap-AB s8 wgmma kernel: the single-phase product of packed W without T
+// or the clamp, as out^T = W^T x^T
+// ---------------------------------------------------------------------------
+
+constexpr int WG_COLS = 128;                     // W columns per block
+constexpr int WG_TK = 128;                       // K codes per stage
+constexpr int WG_CONS = 256;                     // 2 consumer warpgroups
+constexpr int WG_THREADS = WG_CONS + 32;         // + the producer warp
+constexpr int WG_WBYTES = WG_TK / 4 * WG_COLS;   // packed W stage: 32 x 128
+
+// Shared memory of the instance with token tile NT (offsets from a
+// 1024-byte aligned base): a ring of STAGES stages, each the x tile (NT
+// tokens x 128 K codes) and the packed W tile (32 packed rows x 128
+// columns), both 128-byte swizzled by the TMA; the output tile (NT rows
+// of 128 values of OutT, padded by 16 bytes) reuses the ring after the
+// last product; then the mbarriers full[STAGES], empty[STAGES].
+template <int NT, typename OutT>
+struct WgLayout {
+  static constexpr int XBYTES = NT * WG_TK;
+  static constexpr int STAGE = XBYTES + WG_WBYTES;
+  static constexpr int STAGES =
+      160 * 1024 / STAGE < 16 ? 160 * 1024 / STAGE : 16;
+  static constexpr int PITCH = WG_COLS * static_cast<int>(sizeof(OutT)) + 16;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int BAR = RING > NT * PITCH ? RING : NT * PITCH;
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;  // + align
+};
+
+// The A fragments of one stage for thread (g, t) of warp `chunk` (its 16
+// columns are 16 chunk .. 16 chunk + 15 of the block's 128): K step ks
+// needs packed rows 8 ks + t (a0, a1) and 8 ks + 4 + t (a2, a3), at the
+// two columns that stand for its rows g and g + 8, the bytes 2g and 2g +
+// 1 of the warp's 16.  Two 16-bit loads per K step, one word of 4
+// packed bytes, decoded by decode_b straight into a0 .. a3.  The TMA's
+// 128-byte swizzle puts 16-byte chunk c of packed row r at c ^ (r & 7):
+// the 4 rows t = 0..3 a warp reads at once sit in 4 distinct chunks, so
+// the loads are free of bank conflicts.
+__device__ __forceinline__ void wg_decode(const unsigned char* ws,
+                                          int chunk, int g, int t,
+                                          uint32_t (&a)[WG_TK / 32][4]) {
+  const unsigned char* p0 = ws + t * 128 + ((chunk ^ t) << 4) + 2 * g;
+  const unsigned char* p1 =
+      ws + (t + 4) * 128 + ((chunk ^ (t + 4)) << 4) + 2 * g;
+#pragma unroll
+  for (int ks = 0; ks < WG_TK / 32; ++ks) {
+    const uint32_t lo = *reinterpret_cast<const uint16_t*>(p0 + 1024 * ks);
+    const uint32_t hi = *reinterpret_cast<const uint16_t*>(p1 + 1024 * ks);
+    decode_b<false>(lo | (hi << 16), a[ks], nullptr);
+  }
+}
+
+// OutT float / __nv_bfloat16: the epilogue fused, out (M, N); OutT int:
+// the block's int32 sums over its K slice added into the zeroed
+// workspace out (M, N) (tim_epilogue finishes).
+template <int NT, typename OutT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+tim_wg(const __grid_constant__ CUtensorMap tx,
+       const __grid_constant__ CUtensorMap tw, const float* __restrict__ w1,
+       const float* __restrict__ w2, const float* __restrict__ iscale,
+       OutT* __restrict__ out, int M, int N, int K, int tiles_per_split) {
+  using namespace tc;
+  using L = WgLayout<NT, OutT>;
+  constexpr bool SPLIT = std::is_same<OutT, int>::value;
+  extern __shared__ unsigned char smem_w[];
+  const uint32_t raw = smem_u32(smem_w);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_w + (base - raw);
+  const uint32_t full = base + L::BAR, empty = full + 8 * L::STAGES;
+  const int n0 = blockIdx.x * WG_COLS, m0 = blockIdx.y * NT;
+  const int kt0 = blockIdx.z * tiles_per_split;
+  const int ktiles = min(tiles_per_split, (K + WG_TK - 1) / WG_TK - kt0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WG_CONS / 32);  // one arrival a warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WG_CONS / 32) {  // the producer warp
+    if (lane == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % L::STAGES;
+        // the stage's previous tile released by every consumer
+        if (kt >= L::STAGES)
+          mbar_wait(empty + 8 * s, (kt / L::STAGES - 1) & 1);
+        const uint32_t xs = base + s * L::STAGE;
+        mbar_expect_tx(full + 8 * s, L::STAGE);
+        tma_load_2d(xs, &tx, full + 8 * s, (kt0 + kt) * WG_TK, m0);
+        tma_load_2d(xs + L::XBYTES, &tw, full + 8 * s, n0,
+                    (kt0 + kt) * (WG_TK / 4));
+      }
+    }
+    return;
+  }
+
+  // warp `chunk` (warpgroup chunk / 4) computes rows 16 (chunk % 4) ..
+  // of its warpgroup's 64 = the block's columns 16 chunk + 2g (row g)
+  // and 16 chunk + 2g + 1 (row g + 8)
+  const int chunk = warp, g = lane >> 2, t = lane & 3;
+  int acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
+  uint32_t a[2][WG_TK / 32][4];  // the A fragments of two stages
+
+  // One stage: queue its 4 products behind the previous stage's (the
+  // same accumulators), wait for the previous stage's alone, release
+  // that stage, and decode the next stage's fragments into the
+  // registers it read while this stage's products run.
+  auto step = [&](int kt, uint32_t (&cur)[WG_TK / 32][4],
+                  uint32_t (&nxt)[WG_TK / 32][4]) {
+    const uint32_t xs = base + (kt % L::STAGES) * L::STAGE;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < WG_TK / 32; ++ks)
+      wgmma_s8_rs<NT>(acc, cur[ks], wg_desc(xs + 32 * ks, 16, 1024));
+    wg_commit();
+    wg_wait<1>();
+    wg_pin<4 * WG_TK / 32>(&nxt[0][0]);
+    __syncwarp();
+    if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % L::STAGES));
+    if (kt + 1 < ktiles) {
+      const int s1 = (kt + 1) % L::STAGES;
+      mbar_wait(full + 8 * s1, ((kt + 1) / L::STAGES) & 1);
+      wg_decode(gbase + s1 * L::STAGE + L::XBYTES, chunk, g, t, nxt);
+    }
+  };
+  mbar_wait(full, 0);
+  wg_decode(gbase + L::XBYTES, chunk, g, t, a[0]);
+  for (int kt = 0; kt < ktiles; kt += 2) {
+    step(kt, a[0], a[1]);
+    if (kt + 1 < ktiles) step(kt + 1, a[1], a[0]);
+  }
+  wg_wait<0>();
+  wg_pin<NT / 2>(acc);
+
+  // Epilogue: the transposed accumulator (rows = columns, columns =
+  // tokens: d[4j + e] is token 8j + 2t + e of column c, d[4j + 2 + e]
+  // of column c + 1) goes to an output tile in shared memory, pairs of
+  // columns at once (row pitch = 16 mod 64 bytes: the 4 tokens 2t of a
+  // store land 32 bytes apart, free of bank conflicts), then out in
+  // 16-byte rows (the workspace: one int a thread, each warp's atomics
+  // on 128 contiguous bytes).
+  named_sync(1, WG_CONS);  // every warpgroup is done with the ring
+  const int c = 16 * chunk + 2 * g;
+  float cs0 = 0.0f, cs1 = 0.0f, i1 = 0.0f;
+  if (!SPLIT) {
+    if (n0 + c < N) {  // N % 16 == 0: both columns in or out
+      cs0 = __fmul_rn(__fadd_rn(w1[n0 + c], w2[n0 + c]), 0.5f);
+      cs1 = __fmul_rn(__fadd_rn(w1[n0 + c + 1], w2[n0 + c + 1]), 0.5f);
+    }
+    i1 = iscale[0];
+  }
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      unsigned char* dst =
+          gbase + (8 * j + 2 * t + e) * L::PITCH + c * sizeof(OutT);
+      const int s0 = acc[4 * j + e], s1 = acc[4 * j + 2 + e];
+      if constexpr (SPLIT) {
+        *reinterpret_cast<int2*>(dst) = make_int2(s0, s1);
+      } else {
+        const float v0 = epilogue(s0, 0, cs0, 0.0f, false, i1);
+        const float v1 = epilogue(s1, 0, cs1, 0.0f, false, i1);
+        if constexpr (std::is_same<OutT, float>::value)
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+  named_sync(1, WG_CONS);
+  const int rows = min(NT, M - m0);
+  if constexpr (SPLIT) {
+    for (int i = tid; i < rows * WG_COLS; i += WG_CONS) {
+      const int r = i / WG_COLS, cc = i % WG_COLS;
+      if (n0 + cc < N)
+        atomicAdd(out + (size_t)(m0 + r) * N + n0 + cc,
+                  *reinterpret_cast<const int*>(gbase + r * L::PITCH +
+                                                4 * cc));
+    }
+  } else {
+    constexpr int VPC = 16 / sizeof(OutT);  // values per 16 bytes
+    constexpr int CPR = WG_COLS / VPC;      // 16-byte chunks per row
+    for (int i = tid; i < rows * CPR; i += WG_CONS) {
+      const int r = i / CPR, cc = (i % CPR) * VPC;
+      if (n0 + cc < N)
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + cc) =
+            *reinterpret_cast<const uint4*>(gbase + r * L::PITCH +
+                                            cc * sizeof(OutT));
+    }
+  }
+}
+
+// a (rows, cols) byte matrix as a 2-d tensor map, boxes of 128 bytes x
+// `box_rows` rows, 128-byte swizzled; reads past either edge give zeros
+bool byte_map(CUtensorMap* map, const void* p, int rows, int cols,
+              int box_rows) {
+  const tc::EncodeTiled enc = tc::encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NT, typename OutT>
+int go_wg(const CUtensorMap& tx, const CUtensorMap& tw, const float* w1,
+          const float* w2, const float* iscale, void* out, int M, int N,
+          int K, int splits, cudaStream_t st) {
+  auto kern = tim_wg<NT, OutT>;
+  constexpr int smem = WgLayout<NT, OutT>::BYTES;
+  static bool opted_in = false;  // above 48 KB: once per instantiation
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const int ktiles = (K + WG_TK - 1) / WG_TK;
+  const int per = (ktiles + splits - 1) / splits;
+  const dim3 grid((N + WG_COLS - 1) / WG_COLS, (M + NT - 1) / NT,
+                  (ktiles + per - 1) / per);
+  kern<<<grid, WG_THREADS, smem, st>>>(tx, tw, w1, w2, iscale,
+                                       static_cast<OutT*>(out), M, N, K,
+                                       per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int go_wg_out(const CUtensorMap& tx, const CUtensorMap& tw, const float* w1,
+              const float* w2, const float* iscale, int* acc, void* out,
+              int M, int N, int K, int splits, bool out_bf16,
+              cudaStream_t st) {
+  if (splits > 1) {
+    const int e =
+        go_wg<NT, int>(tx, tw, w1, w2, iscale, acc, M, N, K, splits, st);
+    if (e != 0) return e;
+    return launch_epilogue<MODE_SINGLE>(acc, w1, w2, iscale, out, M, N, 0,
+                                        out_bf16, st);
+  }
+  return out_bf16 ? go_wg<NT, __nv_bfloat16>(tx, tw, w1, w2, iscale, out, M,
+                                             N, K, 1, st)
+                  : go_wg<NT, float>(tx, tw, w1, w2, iscale, out, M, N, K, 1,
+                                     st);
 }
 
 }  // namespace
@@ -791,4 +1077,51 @@ extern "C" int tim_tc_launch(const void* x, const void* w, const void* w1,
                                 need_t, splits, out_bf16, st);
   return go_tc_p<MODE_SINGLE>(xs, ws, f1, f2, is, ac, out, M, N, K, packed,
                               need_t, splits, out_bf16, st);
+}
+
+// The swap-AB wgmma product (tim_wg above): the single-phase product of
+// x (M, K) int8 and packed w (K/4, N) uint8, without T or the clamp;
+// K % 16 == 0, N % 16 == 0, x and w 16-byte aligned; nt: the token tile
+// (8, 16, 32, 64 or 128 rows of x a block); splits: the number of K
+// slices (1: the epilogue fused, acc unused; > 1: acc a zeroed int32
+// workspace (M, N)).  Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a shape it does not take (or a tensor map
+// cuTensorMapEncodeTiled refuses).
+extern "C" int tim_wg_launch(const void* x, const void* w, const void* w1,
+                             const void* w2, const void* iscale, void* acc,
+                             void* out, int M, int N, int K, int nt,
+                             int splits, int out_bf16, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if ((nt != 8 && nt != 16 && nt != 32 && nt != 64 && nt != 128) || M < 1 ||
+      N < 16 || K < 16 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
+      splits > (K + WG_TK - 1) / WG_TK || (splits > 1 && acc == nullptr) ||
+      (M + nt - 1) / nt > 65535)
+    return bad;
+  CUtensorMap tx, tw;
+  if (!byte_map(&tx, x, M, K, nt) || !byte_map(&tw, w, K / 4, N, WG_TK / 4))
+    return bad;
+  auto* f1 = static_cast<const float*>(w1);
+  auto* f2 = static_cast<const float*>(w2);
+  auto* is = static_cast<const float*>(iscale);
+  auto* ac = static_cast<int*>(acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nt) {
+    case 8:
+      return go_wg_out<8>(tx, tw, f1, f2, is, ac, out, M, N, K, splits,
+                          out_bf16, st);
+    case 16:
+      return go_wg_out<16>(tx, tw, f1, f2, is, ac, out, M, N, K, splits,
+                           out_bf16, st);
+    case 32:
+      return go_wg_out<32>(tx, tw, f1, f2, is, ac, out, M, N, K, splits,
+                           out_bf16, st);
+    case 64:
+      return go_wg_out<64>(tx, tw, f1, f2, is, ac, out, M, N, K, splits,
+                           out_bf16, st);
+    case 128:
+      return go_wg_out<128>(tx, tw, f1, f2, is, ac, out, M, N, K, splits,
+                            out_bf16, st);
+    default:
+      return bad;
+  }
 }

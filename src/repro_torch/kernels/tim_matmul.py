@@ -12,16 +12,23 @@ launch counter:
   tim_matmul_bitserial  tim_matmul_bitserial_fused_pallas
   ====================  ===========================================
 
-Two kernels serve CUDA tensors, chosen by ``tim_path`` from the mode,
-packing, clamp and shape alone: ``"tc"``, the s8 tensor-core kernel
-(``tim_tc``: no ``n_max``, K and N multiples of 16; single-phase with
-dense int8 weights, two-phase and bit-serial with dense or packed
-ones), counted again in ``tim_single_tc``, ``tim_two_phase_tc`` and
-``tim_bitserial_tc``; and ``"dp4a"``, the CUDA-core kernel
-(``tim_accumulate`` + ``tim_epilogue``) for everything else.
-``tim_tc_splits`` says how many K slices the tc kernel takes: 1 (the
-epilogue fused, no workspace) where its column tiles (``TC_TILE_N``)
-fill the card.
+Three kernels serve CUDA tensors, chosen by ``tim_path`` from the mode,
+packing, T, clamp and shape alone (no ``n_max``, K and N multiples of
+16, for the first two):
+
+  * ``"wgmma"``, the swap-AB s8 wgmma kernel (``tim_wg``): the
+    single-phase product of packed weights without T (row 2), counted
+    again in ``tim_single_packed_wgmma``; ``tim_wg_tile`` gives its
+    token tile and ``tim_wg_splits`` its K slices;
+  * ``"tc"``, the s8 ``mma.sync`` kernel (``tim_tc``): every other
+    product, counted again in ``tim_single_tc``,
+    ``tim_single_packed_tc``, ``tim_two_phase_tc`` and
+    ``tim_bitserial_tc``; ``tim_tc_splits`` gives its K slices;
+  * ``"dp4a"``, the CUDA-core kernel (``tim_accumulate`` +
+    ``tim_epilogue``): ``n_max`` and the shapes the others do not take.
+
+A K split is 1 (the epilogue fused, no workspace) where a kernel's
+(row, column) tiles fill the card.
 
 A wrapper launches a kernel for CUDA tensors and runs the plain version
 (``tim_st_plain``, the S/T decomposition written with torch ops) for CPU
@@ -48,13 +55,18 @@ MODES = {"single": 0, "phases": 1, "bits": 2}
 
 # launches per kernel (one table row each); reset by the caller
 LAUNCHES = {"tim_single": 0, "tim_single_packed": 0, "tim_two_phase": 0,
-            "tim_bitserial": 0, "tim_single_tc": 0, "tim_two_phase_tc": 0,
-            "tim_bitserial_tc": 0}
+            "tim_bitserial": 0, "tim_single_tc": 0,
+            "tim_single_packed_tc": 0, "tim_single_packed_wgmma": 0,
+            "tim_two_phase_tc": 0, "tim_bitserial_tc": 0}
 
 TC_TILE = 128      # the tc kernel's rows and K codes per tile
 # its columns per tile: the two-phase instance keeps 4 products (S and T
 # of each phase) in registers, so its tiles are half as wide
 TC_TILE_N = {"single": 128, "phases": 64, "bits": 128}
+
+WG_COLS = 128      # the wgmma kernel's W columns per block
+WG_TILES = (8, 16, 32, 64, 128)   # its token tiles (wgmma N)
+WG_MIN_SLICE = 4   # its fewest K tiles (of TC_TILE codes) per K slice
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +166,8 @@ def tim_st_plain(x: torch.Tensor, w_data: torch.Tensor, w1: torch.Tensor,
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                 + [ctypes.c_void_p])
+_WG_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
 
 
 def _lib(name: str = "tim_matmul_launch", argtypes=_ARGTYPES):
@@ -165,16 +179,17 @@ def _lib(name: str = "tim_matmul_launch", argtypes=_ARGTYPES):
 
 
 def tim_path(mode: str, packed: bool, n_max: Optional[int], m: int, n: int,
-             k: int) -> str:
-    """The kernel that serves a CUDA call: ``"tc"`` (s8 tensor cores: no
-    clamp, K and N multiples of 16 so that every row is 16-byte aligned;
-    single-phase with dense int8 weights, two-phase and bit-serial with
-    dense or packed ones) or ``"dp4a"``."""
-    if n_max is not None or (mode == "single" and packed):
+             k: int, *, need_t: bool) -> str:
+    """The kernel that serves a CUDA call: ``"wgmma"`` (the single-phase
+    product of packed weights without T), ``"tc"`` (every other product)
+    — both without the clamp, with K and N multiples of 16 so that every
+    row is 16-byte aligned — or ``"dp4a"``."""
+    if n_max is not None or not (m >= 1 and n >= 16 and k >= 16
+                                 and n % 16 == 0 and k % 16 == 0):
         return "dp4a"
-    if m >= 1 and n >= 16 and k >= 16 and n % 16 == 0 and k % 16 == 0:
-        return "tc"
-    return "dp4a"
+    if mode == "single" and packed and not need_t:
+        return "wgmma"
+    return "tc"
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,6 +214,25 @@ def tim_tc_splits(m: int, n: int, k: int, sms: int,
     return max(1, min(-(-k // TC_TILE), sms // tiles))
 
 
+def tim_wg_tile(m: int) -> int:
+    """The wgmma kernel's token tile (its wgmma N) for M rows: the
+    smallest of ``WG_TILES`` that holds M, 128 (row tiles) above."""
+    return next((t for t in WG_TILES if t >= m), WG_TILES[-1])
+
+
+def tim_wg_splits(m: int, n: int, k: int, sms: int) -> int:
+    """K slices of the wgmma kernel's grid on a card of ``sms`` SMs.  1
+    where its (row, column) tiles give at least one block to every other
+    SM: the epilogue is fused and no workspace is zeroed.  Otherwise as
+    many slices as keep one wave on the card, each at least
+    ``WG_MIN_SLICE`` K tiles long (fewer int32 atomics into the
+    workspace, and a ring that has stages to overlap)."""
+    tiles = -(-m // tim_wg_tile(m)) * -(-n // WG_COLS)
+    if 2 * tiles >= sms:
+        return 1
+    return max(1, min(-(-k // TC_TILE) // WG_MIN_SLICE, sms // tiles))
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape=None):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -213,9 +247,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
 
 def tim_st_launch(x, w_data, w1, w2, iscale, *, mode: str, packed: bool,
                   need_t: bool, n_max: Optional[int] = None, bits: int = 0,
-                  out_dtype=torch.float32) -> torch.Tensor:
+                  out_dtype=torch.float32,
+                  path: Optional[str] = None) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors only; same arguments as
-    ``tim_st_plain``)."""
+    ``tim_st_plain``).  ``path`` names the kernel (default: ``tim_path``'s
+    answer); another one is taken only where it computes the call too:
+    ``"dp4a"`` always, ``"tc"`` where the rule says ``"wgmma"`` (to time
+    one against the other on the same inputs)."""
     m, k = x.shape
     n = w_data.shape[1]
     wk = k // CODES_PER_BYTE if packed else k
@@ -236,10 +274,27 @@ def tim_st_launch(x, w_data, w1, w2, iscale, *, mode: str, packed: bool,
     if m == 0 or n == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if tim_path(mode, packed, n_max, m, n, k) == "tc":
-        if x.data_ptr() % 16 or w_data.data_ptr() % 16:
-            raise ValueError("x / w: the tc kernel needs 16-byte aligned "
-                             "rows")
+    rule = tim_path(mode, packed, n_max, m, n, k, need_t=need_t)
+    if path is None:
+        path = rule
+    elif path != rule and path != "dp4a" and (path, rule) != ("tc", "wgmma"):
+        raise ValueError(f"path {path!r} does not take this call "
+                         f"(tim_path: {rule!r})")
+    if path != "dp4a" and (x.data_ptr() % 16 or w_data.data_ptr() % 16):
+        raise ValueError(f"x / w: the {path} kernel needs 16-byte aligned "
+                         f"rows")
+    if path == "wgmma":
+        splits = tim_wg_splits(m, n, k, sm_count(x.device))
+        acc = torch.zeros((m, n), dtype=torch.int32,
+                          device=x.device) if splits > 1 else None
+        err = _lib("tim_wg_launch", _WG_ARGTYPES)(
+            x.data_ptr(), w_data.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            iscale.data_ptr(), None if acc is None else acc.data_ptr(),
+            out.data_ptr(), m, n, k, tim_wg_tile(m), splits,
+            int(out_dtype == torch.bfloat16), stream)
+        _build.check(err, f"tim_matmul[{mode}, wgmma]")
+        return out
+    if path == "tc":
         splits = tim_tc_splits(m, n, k, sm_count(x.device), TC_TILE_N[mode])
         # int32 planes: S of each phase, then T of each
         planes = (2 if mode == "phases" else 1) * (2 if need_t else 1)
@@ -271,9 +326,10 @@ def _route(counter: str, x, w_data, *args, **kw):
     if not x.is_cuda:
         return tim_st_plain(x, w_data, *args, **kw)
     LAUNCHES[counter] += 1
-    if tim_path(kw["mode"], kw["packed"], kw.get("n_max"), x.shape[0],
-                w_data.shape[1], x.shape[1]) == "tc":
-        LAUNCHES[counter + "_tc"] += 1
+    path = tim_path(kw["mode"], kw["packed"], kw.get("n_max"), x.shape[0],
+                    w_data.shape[1], x.shape[1], need_t=kw["need_t"])
+    if path != "dp4a":
+        LAUNCHES[f"{counter}_{path}"] += 1
     return tim_st_launch(x, w_data, *args, **kw)
 
 

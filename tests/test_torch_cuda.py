@@ -102,7 +102,8 @@ TC_CASES = [
 @pytest.mark.parametrize("need_t", [False, True])
 @pytest.mark.parametrize("m,k,n,splits", TC_CASES)
 def test_tim_tc_kernel_equals_plain(dev, m, k, n, splits, need_t):
-    assert tk.tim_path("single", False, None, m, n, k) == "tc"
+    assert tk.tim_path("single", False, None, m, n, k,
+                       need_t=need_t) == "tc"
     assert tk.tim_tc_splits(m, n, k, tk.sm_count(dev)) == splits
     gen = torch.Generator(device=dev).manual_seed(m + k + n)
     # activation codes over the whole int8 range, ternary weight codes
@@ -183,7 +184,7 @@ def _tim_check(mode, x, wd, w1, w2, isc, *, packed, need_t, n_max=None,
     """Every output type: the wrapper's launch equals the plain version
     bit for bit, one launch counted, on the path ``tim_path`` names."""
     m, k = x.shape
-    path = tk.tim_path(mode, packed, n_max, m, wd.shape[1], k)
+    path = tk.tim_path(mode, packed, n_max, m, wd.shape[1], k, need_t=need_t)
     for out_dtype in (torch.bfloat16, torch.float32):
         reset_launch_counts()
         out, counter = _tim_call(mode, x, wd, w1, w2, isc, packed=packed,
@@ -191,7 +192,8 @@ def _tim_check(mode, x, wd, w1, w2, isc, *, packed, need_t, n_max=None,
                                  out_dtype=out_dtype)
         counts = launch_counts()
         assert counts[counter] == 1
-        assert counts.get(counter + "_tc", 0) == (path == "tc")
+        for p in ("tc", "wgmma"):
+            assert counts.get(f"{counter}_{p}", 0) == (path == p)
         ref = tk.tim_st_plain(x, wd, w1, w2, isc, mode=mode, packed=packed,
                               need_t=need_t, n_max=n_max, bits=bits,
                               out_dtype=out_dtype)
@@ -211,8 +213,8 @@ def _tim_check(mode, x, wd, w1, w2, isc, *, packed, need_t, n_max=None,
 def test_tim_every_path_full_int8_range(dev, mode, packed, n_max, need_t,
                                         m, k, n):
     """F3: x over the whole int8 range, -128 in every row: each TiM
-    path (tc and dp4a) equals the plain version, which takes |x| and
-    max(-x, 0) in int8 as the Pallas kernels do."""
+    path (wgmma, tc and dp4a) equals the plain version, which takes |x|
+    and max(-x, 0) in int8 as the Pallas kernels do."""
     gen = torch.Generator(device=dev).manual_seed(k + n + len(mode))
     x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
                       dtype=torch.int8)
@@ -224,9 +226,9 @@ def test_tim_every_path_full_int8_range(dev, mode, packed, n_max, need_t,
                      device=dev)
     path = _tim_check(mode, x, wd, w1, w2, isc, packed=packed,
                       need_t=need_t, n_max=n_max, bits=4)
-    tc = n_max is None and k % 16 == 0 and n % 16 == 0 and \
-        not (mode == "single" and packed)
-    assert path == ("tc" if tc else "dp4a")
+    fits = n_max is None and k % 16 == 0 and n % 16 == 0
+    wg = mode == "single" and packed and not need_t
+    assert path == ("dp4a" if not fits else "wgmma" if wg else "tc")
 
 
 # rows 3 and 4 on the tc kernel at its tile edges (128 rows, 128 K codes
@@ -250,7 +252,7 @@ TC34_CASES = [
 @pytest.mark.parametrize("m,k,n,splits_phases,splits_bits", TC34_CASES)
 def test_tim_tc_rows_3_4_equal_plain(dev, m, k, n, splits_phases,
                                      splits_bits, need_t, packed, mode):
-    assert tk.tim_path(mode, packed, None, m, n, k) == "tc"
+    assert tk.tim_path(mode, packed, None, m, n, k, need_t=need_t) == "tc"
     assert tk.tim_tc_splits(m, n, k, tk.sm_count(dev), tk.TC_TILE_N[mode]) \
         == (splits_phases if mode == "phases" else splits_bits)
     gen = torch.Generator(device=dev).manual_seed(m + k + n + packed)
@@ -282,6 +284,96 @@ def test_tim_tc_bitserial_every_width(dev, bits, m, k, n):
     for need_t in (False, True):
         assert _tim_check("bits", x, wd, w1, w2, step, packed=True,
                           need_t=need_t, bits=bits) == "tc"
+
+
+# row 2 on the swap-AB wgmma kernel: token counts at and around its
+# token tiles (8 .. 128, 128-row tiles above), column counts below,
+# inside and at the served widths (128 a block), K from one 16-code
+# step to the served depths
+WG_M = [1, 7, 8, 63, 64, 65, 127, 128, 129, 256]
+WG_N = [16, 48, 256, 4096, 13696]
+WG_K = [16, 48, 4096, 13696]
+
+
+def _wg_inputs(dev, m, k, n, seed):
+    """x over the whole int8 range (-128 in every row), random packed
+    bytes (every 2-bit field, the reserved 0b10 included), random
+    scales."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    x[:, ::7] = -128
+    wd = _w_operand(gen, dev, k, n, True)
+    w1 = torch.rand(n, generator=gen, device=dev)
+    w2 = torch.rand(n, generator=gen, device=dev)
+    i1 = torch.rand(1, generator=gen, device=dev)
+    return x, wd, w1, w2, i1
+
+
+@pytest.mark.parametrize("k", WG_K)
+@pytest.mark.parametrize("n", WG_N)
+@pytest.mark.parametrize("m", WG_M)
+def test_tim_wg_kernel_equals_plain(dev, m, n, k):
+    assert tk.tim_path("single", True, None, m, n, k, need_t=False) == \
+        "wgmma"
+    x, wd, w1, w2, i1 = _wg_inputs(dev, m, k, n, m + n + k)
+    assert _tim_check("single", x, wd, w1, w2, i1, packed=True,
+                      need_t=False) == "wgmma"
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (128, 4096, 13696, 1),      # the served shapes at M = 128
+    (128, 13696, 4096, 4),
+    (128, 4096, 4096, 4),
+    (128, 4096, 256, 8),
+    (8, 4096, 13696, 1),        # the packed buckets
+    (32, 4096, 256, 8),
+    (300, 4096, 4096, 1),       # 3 row tiles
+    (128, 1040, 256, 2),        # a ragged last slice
+])
+def test_tim_wg_split_and_unsplit_grids(dev, m, k, n, splits):
+    """The K-split grid (int32 atomics, then the epilogue pass) and the
+    fused one equal the plain version, and the mma.sync instance on the
+    same inputs."""
+    assert tk.tim_wg_splits(m, n, k, tk.sm_count(dev)) == splits
+    x, wd, w1, w2, i1 = _wg_inputs(dev, m, k, n, splits)
+    _tim_check("single", x, wd, w1, w2, i1, packed=True, need_t=False)
+    kw = dict(mode="single", packed=True, need_t=False,
+              out_dtype=torch.bfloat16)
+    wg = tk.tim_st_launch(x, wd, w1, w2, i1, **kw)
+    tc = tk.tim_st_launch(x, wd, w1, w2, i1, path="tc", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(wg, tc)
+
+
+def test_tim_wg_wrapper_counts_and_refuses(dev):
+    x, wd, w1, w2, i1 = _wg_inputs(dev, 8, 64, 32, 1)
+    reset_launch_counts()
+    tk.tim_matmul_single(x, wd, w1, w2, i1, packed=True, need_t=False)
+    tk.tim_matmul_single(x, wd, w1, w2, i1, packed=True, need_t=True)
+    tk.tim_matmul_single(x, wd, w1, w2, i1, packed=True, need_t=False,
+                         n_max=8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["tim_single_packed"] == 3
+    assert counts["tim_single_packed_wgmma"] == 1
+    assert counts["tim_single_packed_tc"] == 1
+    kw = dict(mode="single", packed=True, need_t=False)
+    with pytest.raises(ValueError):             # not a wgmma call: T
+        tk.tim_st_launch(x, wd, w1, w2, i1, path="wgmma",
+                         **dict(kw, need_t=True))
+    with pytest.raises(ValueError):             # nor the clamp
+        tk.tim_st_launch(x, wd, w1, w2, i1, path="wgmma", n_max=8, **kw)
+    with pytest.raises(ValueError):             # dense weights
+        tk.tim_st_launch(x, wd.view(torch.int8), w1, w2, i1, **kw)
+    with pytest.raises(ValueError):             # a CPU scale
+        tk.tim_st_launch(x, wd, w1.cpu(), w2, i1, **kw)
+    xm = torch.zeros(8 * 64 + 1, dtype=torch.int8, device=dev)[1:]
+    with pytest.raises(ValueError):             # rows not 16-byte aligned
+        tk.tim_st_launch(xm.view(8, 64), wd, w1, w2, i1, **kw)
+    with pytest.raises(ValueError):             # packed K, not a 4-multiple
+        tk.tim_st_launch(x[:, :62].contiguous(), wd, w1, w2, i1, **kw)
+    reset_launch_counts()
 
 
 KV_MODES = ["bf16", "int8", "f32"]

@@ -1,11 +1,12 @@
 """The port's kernel dispatch rules, held on the CPU.
 
-``tim_path`` / ``tim_tc_splits`` (kernels/tim_matmul.py) and
-``flash_path`` (kernels/flash_attention.py) are plain functions of the
-call's mode, types and shapes: which Hopper kernel serves a CUDA call,
-and how the s8 tensor-core TiM kernel cuts K (its two-phase instance
-has column tiles of 64, the others of 128).  The kernels themselves
-run only on the card (tests/test_torch_cuda.py); here CPU tensors must
+``tim_path`` / ``tim_tc_splits`` / ``tim_wg_tile`` / ``tim_wg_splits``
+(kernels/tim_matmul.py) and ``flash_path`` (kernels/flash_attention.py)
+are plain functions of the call's mode, types and shapes: which Hopper
+kernel serves a CUDA call, how the s8 mma.sync TiM kernel cuts K (its
+two-phase instance has column tiles of 64, the others of 128), and the
+wgmma kernel's token tile and K slices.  The kernels themselves run
+only on the card (tests/test_torch_cuda.py); here CPU tensors must
 still run the plain versions, with no launch counted.
 """
 import numpy as np
@@ -45,14 +46,68 @@ H100_SMS = 132     # streaming multiprocessors of an H100 SXM
     ("phases", True, 8, 128, 4096, 4096, "dp4a"),
     ("phases", False, 8, 128, 4096, 4096, "dp4a"),
     ("bits", True, 8, 128, 4096, 4096, "dp4a"),
-    ("single", True, None, 128, 4096, 4096, "dp4a"),     # packed weights
-    ("single", True, None, 128, 13696, 4096, "dp4a"),
+    ("single", True, None, 128, 4096, 4096, "wgmma"),    # packed weights
+    ("single", True, None, 128, 13696, 4096, "wgmma"),
     ("single", False, None, 128, 130, 4096, "dp4a"),     # N % 16 != 0
     ("single", False, None, 128, 256, 200, "dp4a"),      # K % 16 != 0
     ("single", False, None, 4, 8, 8, "dp4a"),            # N, K < 16
 ])
 def test_tim_path_rule(mode, packed, n_max, m, n, k, path):
-    assert tk.tim_path(mode, packed, n_max, m, n, k) == path
+    assert tk.tim_path(mode, packed, n_max, m, n, k, need_t=False) == path
+
+
+@pytest.mark.parametrize("m", [1, 8, 128, 300])
+@pytest.mark.parametrize("need_t,n_max,n,k,path", [
+    (False, None, 13696, 4096, "wgmma"),   # row 2: the swap-AB kernel
+    (False, None, 4096, 13696, "wgmma"),
+    (False, None, 256, 4096, "wgmma"),
+    (False, None, 16, 16, "wgmma"),
+    (True, None, 4096, 4096, "tc"),        # with T: the mma.sync kernel
+    (True, None, 256, 4096, "tc"),
+    (False, 8, 4096, 4096, "dp4a"),        # the ADC clamp
+    (True, 8, 4096, 4096, "dp4a"),
+    (False, None, 130, 4096, "dp4a"),      # N % 16 != 0
+    (False, None, 256, 200, "dp4a"),       # K % 16 != 0
+])
+def test_tim_path_rule_single_packed(m, need_t, n_max, n, k, path):
+    assert tk.tim_path("single", True, n_max, m, n, k,
+                       need_t=need_t) == path
+    # T changes the path of this product alone
+    assert tk.tim_path("single", False, n_max, m, n, k, need_t=need_t) == \
+        ("dp4a" if path == "dp4a" else "tc")
+
+
+@pytest.mark.parametrize("m,tile", [
+    (1, 8), (7, 8), (8, 8), (9, 16), (16, 16), (17, 32), (32, 32),
+    (33, 64), (64, 64), (65, 128), (128, 128), (129, 128), (300, 128)])
+def test_tim_wg_tile_rule(m, tile):
+    assert tk.tim_wg_tile(m) == tile
+    assert tile in tk.WG_TILES
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (128, 13696, 4096, 1),     # 107 column tiles fill the card: fused
+    (8, 13696, 4096, 1),       # the packed buckets: the same grid
+    (32, 13696, 4096, 1),
+    (128, 8448, 1040, 1),      # 66 tiles: the smallest fused grid
+    (128, 8320, 4096, 2),      # 65 tiles: K split
+    (128, 4096, 4096, 4),      # 32 tiles x 4 slices of 8 K tiles
+    (128, 4096, 13696, 4),     # 4 slices of 27
+    (8, 4096, 4096, 4),
+    (128, 256, 4096, 8),       # 2 tiles: 8 slices of 4 K tiles
+    (1, 256, 4096, 8),
+    (128, 256, 1040, 2),       # 9 K tiles: 2 slices of at least 4
+    (128, 256, 384, 1),        # 3 K tiles: too short to split
+    (300, 4096, 4096, 1),      # 3 row tiles x 32 column tiles
+    (256, 4096, 4096, 2),      # 2 row tiles x 32
+    (1, 16, 16, 1),
+])
+def test_tim_wg_splits_rule(m, n, k, splits):
+    got = tk.tim_wg_splits(m, n, k, H100_SMS)
+    assert got == splits
+    tiles = -(-m // tk.tim_wg_tile(m)) * -(-n // tk.WG_COLS)
+    assert got == 1 or tiles * got <= H100_SMS            # one wave
+    assert got == 1 or -(-k // tk.TC_TILE) >= got * tk.WG_MIN_SLICE
 
 
 @pytest.mark.parametrize("m,n,k,splits", [
@@ -114,7 +169,7 @@ def test_tim_single_cpu_runs_plain_and_counts_nothing(need_t, out_dtype):
     w1 = torch.from_numpy(rng.random(n).astype(np.float32))
     w2 = torch.from_numpy(rng.random(n).astype(np.float32))
     i1 = torch.tensor(0.25)
-    assert tk.tim_path("single", False, None, m, n, k) == "tc"
+    assert tk.tim_path("single", False, None, m, n, k, need_t=need_t) == "tc"
     reset_launch_counts()
     got = tk.tim_matmul_single(x, w, w1, w2, i1, packed=False,
                                need_t=need_t, out_dtype=out_dtype)
@@ -144,7 +199,8 @@ def test_tim_two_phase_cpu_runs_plain_and_counts_nothing(packed, need_t,
     w1 = torch.from_numpy(rng.random(n).astype(np.float32))
     w2 = torch.from_numpy(rng.random(n).astype(np.float32))
     i1, i2 = torch.tensor(0.25), torch.tensor(0.5)
-    assert tk.tim_path("phases", packed, None, m, n, k) == "tc"
+    assert tk.tim_path("phases", packed, None, m, n, k,
+                       need_t=need_t) == "tc"
     reset_launch_counts()
     got = tk.tim_matmul_fused(x, wd, w1, w2, i1, i2, packed=packed,
                               need_t=need_t, out_dtype=out_dtype)
@@ -163,6 +219,37 @@ def test_tim_two_phase_cpu_runs_plain_and_counts_nothing(packed, need_t,
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("need_t", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_tim_single_packed_cpu_runs_plain_and_counts_nothing(m, need_t,
+                                                             out_dtype):
+    rng = np.random.default_rng(m)
+    k, n = 64, 48                 # a wgmma / tc-eligible shape
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    # random packed bytes: every 2-bit field, the reserved 0b10 included
+    wp = torch.from_numpy(rng.integers(0, 256, (k // 4, n)).astype(np.uint8))
+    w1 = torch.from_numpy(rng.random(n).astype(np.float32))
+    w2 = torch.from_numpy(rng.random(n).astype(np.float32))
+    i1 = torch.tensor(0.25)
+    assert tk.tim_path("single", True, None, m, n, k, need_t=need_t) == \
+        ("tc" if need_t else "wgmma")
+    reset_launch_counts()
+    got = tk.tim_matmul_single(x, wp, w1, w2, i1, packed=True,
+                               need_t=need_t, out_dtype=out_dtype)
+    assert not any(launch_counts().values())
+    # the codes by hand: 00 -> 0, 01 -> 1, 10 -> 0, 11 -> -1
+    fields = (wp.long()[:, None, :] >> (2 * torch.arange(4))[None, :, None]
+              ) & 3
+    w = ((fields == 1).long() - (fields == 3).long()).reshape(k, n)
+    s = x.long() @ w
+    ref = (w1 + w2) * 0.5 * s.float()
+    if need_t:
+        # |x| in int8, as the Pallas kernels take it: |-128| wraps
+        ref = ref + (w1 - w2) * 0.5 * (x.abs().long() @ w.abs()).float()
+    assert torch.equal(got, (i1 * ref).to(out_dtype))
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("need_t", [False, True])
 @pytest.mark.parametrize("bits", [2, 4, 7])
@@ -176,7 +263,8 @@ def test_tim_bitserial_cpu_runs_plain_and_counts_nothing(packed, need_t,
     w1 = torch.from_numpy(rng.random(n).astype(np.float32))
     w2 = torch.from_numpy(rng.random(n).astype(np.float32))
     step = torch.tensor(0.0625)
-    assert tk.tim_path("bits", packed, None, m, n, k) == "tc"
+    assert tk.tim_path("bits", packed, None, m, n, k,
+                       need_t=need_t) == "tc"
     reset_launch_counts()
     got = tk.tim_matmul_bitserial(x, wd, w1, w2, step, bits=bits,
                                   packed=packed, need_t=need_t)
