@@ -37,7 +37,9 @@ Phases (any failure exits non-zero; nothing is caught):
    in bf16 and f32, and timed at M = 8 and 32 for (4096, 13696); on
    its inputs the ``tc`` instance and the ``dp4a`` kernel that served
    row 2 before are timed too, and ``torch._int_mm`` on the unpacked
-   codes (S only) is its library call;
+   codes (S only) is its library call; row 4 is also held (bf16 and
+   f32) and timed at the int2 draft's shape: M = 8 slots, 2-bit codes,
+   the four (K, N), on the tc kernel;
 4. sharded attention (``repro_torch.distrib.decode_attn``, the
    compacted-partials kernel) over a bf16 pool of 262,144 blocks of 16
    (chatglm3-6b attention: H=32, Hk=2, D=128) cut into n = 4 contiguous
@@ -89,7 +91,33 @@ Phases (any failure exits non-zero; nothing is caught):
    ``compute_dtype='float32'`` config (first-step logits against the
    plain route as in step 6), each through the paged kernels, their
    tokens compared with P0's and reported;
-9. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+9. sampling under policy A (its params, ``greedy=False``, T = 1.0, 32
+   new tokens): S0 padded, S1 packed, S2 packed on the 129-block pool
+   swapping, S3 padded on it with ``preempt='auto'``, every request's
+   tokens equal to S0's; the two shortest requests alone, equal to
+   their S0 runs; ``Request(n=4)`` siblings (one prefill: every other
+   sibling hits all but its last prompt token) each equal to its
+   independent resubmission; a guided run (every token in its allowed
+   set of 8); a width-2 beam run under the reference's beam invariants
+   (``beam_forks`` > 0); the sampler alone on a step's logits:
+   launches, device, host and event ms per call, beside the step;
+10. self-speculative decoding under policy A with an int2 draft,
+   ``spec_k=3``: greedy padded and packed token-equal to step 6's
+   policy-A run, ``draft_tokens == accepted + rejected``, every
+   bit-serial launch of a draft pass (counted inside the draft step)
+   on the tc kernel; acceptance rate, ms and generated tokens per step
+   beside the non-spec run; one draft pass and one verify step
+   profiled by kernel; sampled speculation that drafts nothing
+   (``token_budget=1``) bit-equal to plain sampling;
+11. yi-34b (4 layers) and llama3-405b (2 layers) at full width under
+   policy D, random weights: the bytes reckoned before init, the row-2
+   path and K slices at every new (K, N), first-step logits against the
+   plain route (the rule of step 6), padded and packed token-equal;
+12. the ``{"kernels": [...]}`` line (launches: the policy runs of step
+   6, the packed kernel's in P1, P2 and P4, and every run of steps 9-11,
+   each with the counters at 0 just before it; the int2 draft's row
+   counts the bit-serial launches inside the draft passes), then
+   ``{"ok": true, "device": ...}``.
 
 It imports nothing of the JAX package.
 """
@@ -964,19 +992,26 @@ def policy_cfg(pol, layers):
                                      pack=pol["pack"]))
 
 
-def serve(label, params, cfg, seed, max_new=16, block_size=16,
-          **engine_kw):
-    """Serve the 12 requests through ``ServeEngine`` with every launch
-    counter set to 0 just before and read just after; returns (tokens by
-    uid, stats, launch counts, wall s, digest, engine)."""
+def serve(label, params, cfg, req_seed, max_new=16, reqs=None,
+          on_engine=None, **engine_kw):
+    """Serve the 12 requests of ``req_seed`` (or ``reqs``) through
+    ``ServeEngine`` (8 slots, chunk 16, budget 128, max_len 2048, block
+    16 unless ``engine_kw`` says otherwise) with every launch counter set to 0
+    just before and read just after; ``on_engine(eng)`` runs before the
+    requests are served.  Returns (tokens by uid, stats, launch counts,
+    wall s, digest, engine)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import metrics
     from repro_torch.serve.engine import ServeEngine
-    eng = ServeEngine(params, cfg, batch_slots=8, max_len=2048, chunk=16,
-                      block_size=block_size, token_budget=128,
-                      device="cuda", **engine_kw)
-    reqs = make_requests(cfg.vocab_size, seed, max_new=max_new)
+    kw = dict(batch_slots=8, max_len=2048, chunk=16, block_size=16,
+              token_budget=128, device="cuda")
+    kw.update(engine_kw)
+    eng = ServeEngine(params, cfg, **kw)
+    if on_engine is not None:
+        on_engine(eng)
+    if reqs is None:
+        reqs = make_requests(cfg.vocab_size, req_seed, max_new=max_new)
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
@@ -1207,6 +1242,491 @@ def f1_runs(params, cfg, seed, ref):
         raise AssertionError("; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# row 4 at the int2 draft's shape
+# ---------------------------------------------------------------------------
+
+DRAFT_SPEC = ("bits", True, 2, False, "src/repro/kernels/tim_matmul.py:507")
+
+
+def tim_draft_phase(gen, iters):
+    """Row 4 as the int2 draft of a policy-A target launches it: M = 8
+    slots, 2-bit codes, packed W, at the four served (K, N); held bit
+    for bit (bf16 and f32) against the plain version and timed."""
+    import torch
+    from repro_torch.kernels import tim_matmul as tk
+    mode, packed, bits, need_t, _ = DRAFT_SPEC
+    rows = []
+    for k, n in TIM_SHAPES:
+        m = 8
+        x, w, wp, w1, w2, isc, err = tim_exact(
+            "tim_bitserial_int2_draft", m, k, n, DRAFT_SPEC, packed, None,
+            gen, (torch.bfloat16, torch.float32))
+        path = tk.tim_path(mode, packed, None, m, n, k, need_t=need_t)
+        if path != "tc":
+            raise AssertionError(f"int2 draft K={k} N={n}: served by "
+                                 f"{path}, not tc")
+        kw = dict(mode=mode, packed=packed, need_t=need_t, bits=bits,
+                  out_dtype=torch.bfloat16)
+
+        def call():
+            return tk.tim_st_launch(x, wp, w1, w2, isc, **kw)
+        ms, dev_ms = time_ms(call, iters), device_ms(call, TIM_NAMES, iters)
+        plain_ms = time_ms(lambda: tk.tim_st_plain(x, wp, w1, w2, isc,
+                                                   **kw), max(2, iters // 4))
+        nbytes = m * k + wp.numel() + 8 * n + 2 * m * n
+        b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+        splits = tk.tim_tc_splits(m, n, k, tk.sm_count(x.device),
+                                  tk.TC_TILE_N[mode])
+        log(f"[kernel tim_bitserial_int2_draft] M={m} K={k} N={n} bits=2 "
+            f"packed=True path={path} splits={splits} bit_exact=True "
+            f"max_abs_err={err} ms={ms:.4f} device_ms={dev_ms} "
+            f"plain_ms={plain_ms:.4f} library_ms=None bound_ms={b_ms:.5f} "
+            f"({b_by})")
+        rows.append(dict(M=m, K=k, N=n, max_abs_err=err, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del x, w, wp
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# sampling, siblings, beam search, guided masks (policy A)
+# ---------------------------------------------------------------------------
+
+# the sampled runs (32 new tokens, as the layout runs, so that the
+# hard-floor pool preempts); S0 is the reference the others are held to
+SAMPLE_RUNS = {
+    "S0": dict(packed=False),
+    "S1": dict(packed=True),
+    "S2": dict(packed=True, num_blocks=FLOOR_BLOCKS, preempt="swap"),
+    "S3": dict(packed=False, num_blocks=FLOOR_BLOCKS, preempt="auto"),
+}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def drain(label, eng, reqs):
+    """Serve ``reqs`` on ``eng`` with the launch counters set to 0 just
+    before and read just after; returns (stats, counts, wall s)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = eng.stats()
+    log(f"[run {label}] wall_s={wall:.3f} ms_per_step="
+        f"{wall / max(st['steps'], 1) * 1e3:.2f} steps={st['steps']} "
+        f"output_tokens={st['output_tokens']} "
+        f"prefix_hit_tokens={st['prefix_hit_tokens']} "
+        f"scheduled_prefill_tokens={st['scheduled_prefill_tokens']} "
+        f"sibling_requests={st['sibling_requests']} "
+        f"beam_forks={st['beam_forks']} masked_tokens={st['masked_tokens']}")
+    return st, counts, wall
+
+
+def sampler_cost(cfg, seed, iters):
+    """The sampling tail alone on a step's (8, vocab) bf16 logits, at
+    T = 1.0 without and with beam candidates (top 2): launches (device
+    kernels and copies per call, torch.profiler), device ms per call,
+    host ms per call (enqueue, by the host clock, before the stream is
+    synchronized) and ms per call (CUDA events over back-to-back
+    calls)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import prng
+    from repro_torch.serve.engine import _get_sampler
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lg = torch.randn((8, cfg.vocab_padded), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+    ids = np.stack([np.arange(8), np.zeros(8, np.int64),
+                    np.arange(8) * 3], 1)
+    mask = torch.full((8, 8), -1, dtype=torch.int32)
+    base = prng.prng_key(seed)
+    out = {}
+    for topk in (0, 2):
+        fn = _get_sampler(1.0, topk)
+
+        def call():
+            return fn(lg, base, ids, mask)
+        ms = time_ms(call, iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        n_ev, us = 0, 0.0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+            if t > 0:
+                n_ev += ev.count
+                us += t
+        out[topk] = dict(launches=n_ev / iters, device_ms=us / 1e3 / iters,
+                         host_ms=host_ms, ms=ms)
+        log(f"[sampler topk={topk}] vocab={cfg.vocab_padded} slots=8 "
+            f"launches_per_call={n_ev / iters:.1f} "
+            f"device_ms={us / 1e3 / iters:.4f} host_ms={host_ms:.4f} "
+            f"ms={ms:.4f}")
+    return out
+
+
+def sampling_phase(params, cfg, seed, greedy_ms_per_step, iters):
+    """Policy A at full width, ``greedy=False``, T = 1.0: S0-S3 (padded,
+    packed, the hard-floor pool swapping and 'auto') token-equal; two
+    requests alone equal to their runs in S0; n = 4 siblings sharing
+    one prefill, each equal to its independent resubmission; a guided
+    run inside its allowed set; a width-2 beam run under the reference's
+    beam invariants.  Returns the launch counts of every run."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    samp = dict(greedy=False, temperature=1.0, seed=seed + 1)
+    total, failures, ref, ref_st, s0 = {}, [], None, None, None
+    for name, kw in SAMPLE_RUNS.items():
+        toks, st, counts, wall, dig, eng = serve(
+            f"sampled {name}", params, cfg, seed, max_new=LAYOUT_NEW,
+            **samp, **kw)
+        add_counts(total, counts)
+        log_run(f"sampled {name} {kw}", st, wall, dig, eng)
+        del eng
+        if ref is None:
+            ref, ref_st, s0 = toks, st, wall / st["steps"] * 1e3
+            continue
+        bad = [u for u in ref if toks[u] != ref[u]]
+        log(f"[run sampled {name}] tokens equal to S0's: {not bad} "
+            f"(requests differing: {bad})")
+        if bad:
+            failures.append(f"sampled {name}: requests {bad} differ from S0")
+        if "num_blocks" in kw and st["preemptions"] <= 0:
+            failures.append(f"sampled {name}: the hard-floor pool never "
+                            f"preempted")
+    if ref_st["d2h_fetches"] > ref_st["steps"]:
+        failures.append(f"sampled S0: {ref_st['d2h_fetches']} fetches in "
+                        f"{ref_st['steps']} steps")
+    reqs = make_requests(cfg.vocab_size, seed, max_new=LAYOUT_NEW)
+    for r in sorted(reqs, key=lambda r: len(r.prompt))[:2]:
+        toks, st, counts, wall, _, eng = serve(
+            f"sampled alone {r.uid}", params, cfg, seed, max_new=LAYOUT_NEW,
+            reqs=[Request(r.uid, r.prompt.copy(), LAYOUT_NEW)], **samp)
+        add_counts(total, counts)
+        del eng
+        same = toks[r.uid] == ref[r.uid]
+        log(f"[run sampled alone {r.uid}] prompt={len(r.prompt)} "
+            f"steps={st['steps']} tokens equal to S0's: {same}")
+        if not same:
+            failures.append(f"request {r.uid} alone differs from S0")
+
+    def engine():
+        return ServeEngine(params, cfg, batch_slots=8, max_len=2048,
+                           chunk=16, block_size=16, token_budget=128,
+                           device="cuda", **samp)
+    p = reqs[3].prompt
+    eng = engine()
+    parent = Request(100, p.copy(), 16, n=4)
+    st, counts, _ = drain("siblings n=4", eng, [parent])
+    add_counts(total, counts)
+    kids = parent.siblings
+    hits = [k.prefix_hit_tokens for k in kids]
+    if hits != [0] + [len(p) - 1] * 3 or st["sibling_requests"] != 3 or \
+            st["scheduled_prefill_tokens"] != len(p) + 3:
+        failures.append(f"siblings: prefix hits {hits}, stats {st}")
+    if st["blocks_in_use"] != 0 or len({tuple(k.out_tokens)
+                                        for k in kids}) < 2:
+        failures.append("siblings: blocks left in use or identical samples")
+    eng = engine()
+    indep = [Request(100, p.copy(), 16, sample_index=s) for s in range(4)]
+    _, counts, _ = drain("siblings resubmitted", eng, indep)
+    add_counts(total, counts)
+    same = [k.out_tokens == r.out_tokens for k, r in zip(kids, indep)]
+    log(f"[run siblings] prompt={len(p)} prefix_hit_tokens={hits} "
+        f"each equal to its resubmission: {same}")
+    if not all(same):
+        failures.append(f"siblings differ from their resubmissions: {same}")
+    rng = np.random.default_rng(seed)
+    allowed = sorted(int(t) for t in rng.choice(cfg.vocab_size, 8,
+                                                replace=False))
+    eng = engine()
+    g = Request(101, p.copy(), 16, allowed_tokens=lambda out: allowed)
+    st, counts, _ = drain("guided", eng, [g])
+    add_counts(total, counts)
+    inside = all(t in allowed for t in g.out_tokens)
+    log(f"[run guided] allowed={allowed} tokens={g.out_tokens} inside: "
+        f"{inside} masked_tokens={st['masked_tokens']}")
+    if not inside or st["masked_tokens"] != 16:
+        failures.append("guided: a token left its allowed set")
+    eng = engine()
+    beam = Request(102, p.copy(), 16, n=2, sample_mode="beam")
+    st, counts, _ = drain("beam width 2", eng, [beam])
+    add_counts(total, counts)
+    kids = beam.siblings
+    ok = (all(k.done and len(k.out_tokens) == 16 for k in kids)
+          and kids[0].out_tokens != kids[1].out_tokens
+          and all(np.isfinite(k.cum_logprob) and k.cum_logprob < 0
+                  for k in kids)
+          and eng._beam_groups == {} and st["beam_forks"] > 0
+          and st["blocks_in_use"] == 0)
+    log(f"[run beam] cum_logprob={[round(k.cum_logprob, 4) for k in kids]} "
+        f"beam_forks={st['beam_forks']} invariants hold: {ok}")
+    if not ok:
+        failures.append(f"beam: invariants fail: {st}")
+    del eng
+    torch.cuda.empty_cache()
+    cost = sampler_cost(cfg, seed, iters)
+    log(f"[sampling A] greedy ms_per_step={greedy_ms_per_step:.2f} "
+        f"sampled ms_per_step={s0:.2f} sampler ms={cost[0]['ms']:.4f} "
+        f"(device {cost[0]['device_ms']:.4f}, host "
+        f"{cost[0]['host_ms']:.4f}, launches {cost[0]['launches']:.0f}) "
+        f"share_of_step={cost[0]['ms'] / s0:.4f}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decoding (policy A target, int2 draft)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+
+
+def watch_spec(eng, box):
+    """Wrap a spec engine's draft and verify steps: count the bit-serial
+    launches each draft pass makes (and how many took the tc kernel),
+    and keep the last call's arguments of each for a profiled replay."""
+    from repro_torch.kernels import launch_counts
+    draft, verify = eng._draft_step, eng._spec_step
+
+    def draft_counted(*a):
+        c0 = launch_counts()
+        out = draft(*a)
+        c1 = launch_counts()
+        for k in ("tim_bitserial", "tim_bitserial_tc"):
+            box[k] = box.get(k, 0) + c1[k] - c0[k]
+        box["draft"] = (draft, a)
+        return out
+
+    def verify_kept(*a):
+        box["verify"] = (verify, a)
+        return verify(*a)
+    eng._draft_step, eng._spec_step = draft_counted, verify_kept
+
+
+def profile_call(label, fn, args):
+    """Device time by kernel of one call (torch.profiler), beside its
+    wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[profile {label}] wall_ms={wall_ms:.2f} "
+        + (f"device_busy_ms={busy:.2f} top=" + "; ".join(
+            f"{k[:60]}={v:.2f}ms" for k, v in top)
+           if by_name else "device time not measured (no device events)"))
+
+
+def spec_phase(params, cfg, seed, base_toks, base_st, base_wall):
+    """Policy A target, int2 draft, ``spec_k=3``, full width and depth:
+    greedy padded and packed token-equal to the non-spec greedy run;
+    ``draft_tokens == accepted + rejected``; every draft launch on the
+    tc kernel; sampled speculation that drafts nothing (``token_budget
+    =1``) bit-equal to plain sampling.  Returns (launch counts of every
+    run, bit-serial launches of the draft passes)."""
+    import torch
+    from repro_torch.serve.engine import Request
+    total, failures, drafted = {}, [], 0
+    gen_base = sum(map(len, base_toks.values()))
+    base_ms = base_wall / base_st["steps"] * 1e3
+    for name, kw in (("spec padded", dict(packed=False)),
+                     ("spec packed", dict(packed=True))):
+        box = {}
+        toks, st, counts, wall, dig, eng = serve(
+            name, params, cfg, seed, spec_k=SPEC_K,
+            on_engine=lambda e, b=box: watch_spec(e, b), **kw)
+        add_counts(total, counts)
+        log_run(f"{name} spec_k={SPEC_K}", st, wall, dig, eng)
+        gen = sum(map(len, toks.values()))
+        acc = st["accepted_tokens"] / max(st["draft_tokens"], 1)
+        log(f"[spec {name}] draft_tokens={st['draft_tokens']} "
+            f"accepted={st['accepted_tokens']} "
+            f"rejected={st['rejected_tokens']} bonus={st['bonus_tokens']} "
+            f"acceptance_rate={acc:.4f} draft_d2h_fetches="
+            f"{st['draft_d2h_fetches']} ms_per_step="
+            f"{wall / st['steps'] * 1e3:.2f} (non-spec {base_ms:.2f}) "
+            f"generated_per_step={gen / st['steps']:.3f} (non-spec "
+            f"{gen_base / base_st['steps']:.3f}) steps={st['steps']} "
+            f"(non-spec {base_st['steps']}) draft_bitserial_launches="
+            f"{box.get('tim_bitserial', 0)} on_tc="
+            f"{box.get('tim_bitserial_tc', 0)}")
+        bad = [u for u in base_toks if toks[u] != base_toks[u]]
+        if bad:
+            failures.append(f"{name}: requests {bad} differ from the "
+                            f"non-spec greedy run")
+        if st["draft_tokens"] != st["accepted_tokens"] + \
+                st["rejected_tokens"] or st["draft_tokens"] <= 0:
+            failures.append(f"{name}: draft accounting {st}")
+        if box.get("tim_bitserial", 0) <= 0 or \
+                box["tim_bitserial"] != box["tim_bitserial_tc"]:
+            failures.append(
+                f"{name}: draft passes launched "
+                f"{box.get('tim_bitserial', 0)} bit-serial products, "
+                f"{box.get('tim_bitserial_tc', 0)} on the tc kernel")
+        if counts["tim_bitserial"] != counts["tim_bitserial_tc"]:
+            failures.append(f"{name}: bit-serial launches off the tc "
+                            f"kernel: {counts}")
+        drafted += box.get("tim_bitserial", 0)
+        if not kw["packed"]:
+            profile_call("spec draft pass", *box["draft"])
+            profile_call("spec verify step", *box["verify"])
+        del eng, box
+        torch.cuda.empty_cache()
+    # sampled, drafting nothing: the verify and accept path against
+    # plain sampling (three 48-token prompts, 8 new tokens, budget 1)
+    reqs = make_requests(cfg.vocab_size, seed)
+    runs = []
+    for spec_k in (0, SPEC_K):
+        short = [Request(200 + u, r.prompt[:48].copy(), 8)
+                 for u, r in enumerate(reqs[:3])]
+        toks, st, counts, wall, _, eng = serve(
+            f"sampled budget 1 spec_k={spec_k}", params, cfg, seed,
+            max_new=8, reqs=short, greedy=False, seed=seed + 1,
+            token_budget=1, spec_k=spec_k)
+        add_counts(total, counts)
+        del eng
+        runs.append((toks, st))
+    same = runs[0][0] == runs[1][0]
+    log(f"[spec sampled k=0] steps={runs[1][1]['steps']} draft_tokens="
+        f"{runs[1][1]['draft_tokens']} bit-identical to non-spec sampled: "
+        f"{same}")
+    if not same or runs[1][1]["draft_tokens"] != 0:
+        failures.append("sampled spec without drafts differs from plain "
+                        "sampling")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total, drafted
+
+
+# ---------------------------------------------------------------------------
+# the yi-34b and llama3-405b configs (policy D, reduced depth)
+# ---------------------------------------------------------------------------
+
+CONFIG_LAYERS = {"yi-34b": 4, "llama3-405b": 2}
+
+
+def config_phase(name, layers, seed):
+    """One config at full width, ``layers`` deep, random weights, policy
+    D: the bytes it needs, first-step logits of the kernel route against
+    the plain route (the rule of ``engine_run``), padded and packed
+    engine runs token-equal, and the path and K slices of the row-2
+    kernel at each new (K, N).  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tim_matmul as tk
+    from repro_torch.models import transformer as tfm
+    full = get_config(name)
+    pol = POLICIES["D"]
+    cfg = full.replace(
+        n_layers=layers, kv_cache_dtype=pol["kv"],
+        ternary=full.ternary.replace(encoding=pol["encoding"],
+                                     act_mode=pol["act_mode"],
+                                     pack=pol["pack"]))
+    d, hd = cfg.d_model, cfg.hd
+    shapes = {"q": (d, cfg.n_heads * hd), "k": (d, cfg.n_kv_heads * hd),
+              "o": (cfg.n_heads * hd, d), "gate": (d, cfg.d_ff),
+              "down": (cfg.d_ff, d)}
+    per_layer = sum(k * n for k, n in shapes.values()) + \
+        d * cfg.n_kv_heads * hd + d * cfg.d_ff          # v, up
+    vocab_bytes = 2 * cfg.vocab_padded * d * cfg.pdtype.itemsize
+    codes = layers * per_layer // 4
+    kv = 2 * layers * (8 * 128 + 8) * 16 * cfg.n_kv_heads * hd * 2
+    free, _ = torch.cuda.mem_get_info()
+    log(f"[config {name}] cut: n_layers {full.n_layers} -> {layers} "
+        f"(width as published: d_model {d}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} of {hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}); layer params {layers * per_layer / 1e9:.3f}e9, "
+        f"packed codes {codes / 1e9:.3f} GB, embed + head "
+        f"{vocab_bytes / 1e9:.3f} GB ({cfg.param_dtype}), KV pool "
+        f"{kv / 1e9:.3f} GB; device free {free / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    params = tfm.init(cfg, seed=seed, device="cuda", ternarize=True)
+    torch.cuda.synchronize()
+    log(f"[config {name}] init_s={time.perf_counter() - t0:.2f} "
+        f"allocated_GB={torch.cuda.memory_allocated() / 1e9:.2f}")
+    sms = tk.sm_count(torch.device("cuda"))
+    for pname, (k, n) in shapes.items():
+        for m in (128, 8):
+            path = tk.tim_path("single", True, None, m, n, k, need_t=False)
+            log(f"[config {name}] {pname} K={k} N={n} M={m} path={path} "
+                f"k_slices={tk.tim_wg_splits(m, n, k, sms)}")
+    lg_k = first_step(params, cfg, seed, "auto")
+    lg_p = first_step(params, cfg, seed, "torch")
+    rel, agree, max_abs = logits_agreement(lg_k, lg_p, cfg.vocab_size)
+    log(f"[config {name}] first-step logits kernel vs plain: rel_l2="
+        f"{rel:.3e} max_abs={max_abs:.4f} argmax_agree={agree:.3f}")
+    if not bool(torch.isfinite(lg_k[:, :cfg.vocab_size]).all()) or \
+            rel > 0.5 or agree < 0.75:
+        raise AssertionError(f"{name}: first-step logits of the kernel "
+                             f"route differ from the plain route (relative "
+                             f"L2 {rel:.3e}, argmax agreement {agree:.3f})")
+    del lg_k, lg_p
+    total, toks = {}, []
+    for packed in (False, True):
+        label = f"{name} {'packed' if packed else 'padded'}"
+        t, st, counts, wall, dig, eng = serve(label, params, cfg, seed,
+                                              packed=packed)
+        add_counts(total, counts)
+        log_run(label, st, wall, dig, eng)
+        log(f"[run {label}] launches={counts}")
+        del eng
+        if counts["tim_single_packed"] <= 0 or counts[
+                "tim_single_packed"] != counts["tim_single_packed_wgmma"]:
+            raise AssertionError(f"{label}: row 2 off the wgmma kernel: "
+                                 f"{counts}")
+        toks.append(t)
+    bad = [u for u in toks[0] if toks[0][u] != toks[1][u]]
+    log(f"[config {name}] padded and packed tokens equal: {not bad} "
+        f"(requests differing: {bad})")
+    del params
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"{name}: packed tokens differ from padded "
+                             f"for requests {bad}")
+    return total
+
+
 # one turn of the A/B: the flash phase, the TiM phases of rows 2, 3 and
 # 4 and the engine runs of policies B, C, A and D of the tree's own
 # chip_smoke.py, in a process of its own.  It calls that tree's
@@ -1305,6 +1825,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     tim_rows = {n: tim_phase(n, s, gen, args.iters)
                 for n, s in TIM_KERNELS.items()}
+    # its own generator: the later phases draw what they drew before it
+    draft_rows = tim_draft_phase(
+        torch.Generator(device="cuda").manual_seed(args.seed + 1),
+        args.iters)
     attn_rows = attn_phase(gen, args.iters)
     packed_rows = packed_attn_phase(gen, args.iters)
     t1 = time.perf_counter()
@@ -1313,18 +1837,43 @@ def main(argv=None) -> int:
     log(f"[phases sharded + flash] {time.perf_counter() - t1:.1f}s")
 
     launches = {n: 0 for n in list(TIM_KERNELS) + ["paged_attention"]}
-    kept = None
+    kept, walls = {}, {}
     for label in POLICIES:
-        counts, _, k = engine_run(label, POLICIES[label], args.layers,
-                                  args.seed, keep=label == "D")
-        kept = k or kept
+        counts, walls[label], k = engine_run(label, POLICIES[label],
+                                             args.layers, args.seed,
+                                             keep=label in "AD")
+        if k:
+            kept[label] = k
         for n in launches:
             launches[n] += counts[n]
-    params, cfg, base_toks, _ = kept
+    params, cfg, base_toks, _ = kept.pop("D")
     launches["paged_packed_attention"], p0 = layout_runs(params, cfg,
                                                          args.seed,
                                                          base_toks)
     f1_runs(params, cfg, args.seed, p0)
+    del params
+    torch.cuda.empty_cache()
+
+    # the paths of this slice, each with the counters at 0 just before
+    # it and read just after (serve, drain): sampling, speculation, the
+    # two new configs
+    t1 = time.perf_counter()
+    params, cfg, a_toks, a_st = kept.pop("A")
+    new_counts = sampling_phase(params, cfg, args.seed,
+                                walls["A"] / a_st["steps"] * 1e3, args.iters)
+    spec_counts, draft_launches = spec_phase(params, cfg, args.seed, a_toks,
+                                             a_st, walls["A"])
+    add_counts(new_counts, spec_counts)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[phases sampling + spec] {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    for name, layers in CONFIG_LAYERS.items():
+        add_counts(new_counts, config_phase(name, layers, args.seed))
+    log(f"[phases configs] {time.perf_counter() - t1:.1f}s")
+    launches["paged_packed_attention"] += new_counts["paged_packed_attention"]
+    for n in list(TIM_KERNELS) + ["paged_attention"]:
+        launches[n] += new_counts[n]
 
     kernels = []
     for name, spec in TIM_KERNELS.items():
@@ -1337,6 +1886,14 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    r = next(x for x in draft_rows if (x["K"], x["N"]) == (4096, 13696))
+    kernels.append(dict(
+        name="tim_bitserial_int2_draft", route="cuda",
+        source="src/repro_torch/csrc/tim_matmul.cu", replaces=DRAFT_SPEC[4],
+        launches=draft_launches,
+        max_abs_err=max(x["max_abs_err"] for x in draft_rows), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"]))
     a = attn_rows[0]
     kernels.append(dict(
         name="paged_attention", route="cuda",

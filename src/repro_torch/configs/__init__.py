@@ -9,6 +9,8 @@ from repro_torch.configs.base import ArchConfig, BlockSpec
 _MODULES = {
     "granite-34b": "granite_34b",
     "chatglm3-6b": "chatglm3_6b",
+    "yi-34b": "yi_34b",
+    "llama3-405b": "llama3_405b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

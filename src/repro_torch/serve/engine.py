@@ -1,6 +1,7 @@
 """Serving engine: ternarized weights, token-budget continuous batching.
 
-The port of the reference engine's core (``repro/serve/engine.py``):
+The port of the reference engine (``repro/serve/engine.py``) for dense
+attention stacks:
 
   * ``ternarize_model`` converts master weights into TiM serving codes
     (int8, or 2-bit packed);
@@ -23,18 +24,34 @@ The port of the reference engine's core (``repro/serve/engine.py``):
     batched copy) or dropped for recompute, whichever the roofline
     crossover prices cheaper, and the request resumes from the queue
     front with its effective prompt;
-  * greedy decoding; ``stats()`` exposes the counters.
+  * decoding: greedy, or sampled (``greedy=False``) from per-request
+    counter-based streams — token t of sibling s of request uid draws
+    from ``derive_sample_key(base, uid, s, t)`` (``core/prng``, the
+    reference's ``jax.random`` threefry bit for bit), so a sampled
+    rollout does not depend on occupancy, layout or preemption;
+    ``Request(n=...)`` siblings share the prompt's blocks (one
+    prefill); ``sample_mode='beam'`` runs width-n beam search over the
+    copy-on-write fork path; ``allowed_tokens`` masks constrain every
+    sampled position through a compact (slots, ``mask_width``) buffer;
+  * self-speculative decoding (``spec_k > 0``): a draft pass over the
+    same codes through a cheaper activation encoding
+    (``TernaryPolicy.draft``, e.g. int2 against an int4 target)
+    proposes up to ``spec_k`` tokens per decoding slot, the target
+    verifies them in one mixed step, and a rejected suffix rolls back
+    (``_step_spec``); ``stats()`` exposes the counters.
 
-Not ported yet (constructor or ``submit`` raises NotImplementedError):
-speculative decoding, sampling, ``n > 1`` siblings, beam search and
-guided masks.
+Outside the port (``NotImplementedError``): media inputs, and every
+non-dense stack (``models/transformer._check_dense``).
 
 Host/device hand-off: all scheduler state is host numpy.  Each step
 hands the model private CPU copies of every scheduler array (tokens,
 cache_len, n_new, block tables, slot map), so later in-place host
 updates can never reach what a step reads, however the copy to the
-device is ordered.  The only device-to-host transfer per step is the
-fetch of the greedy tokens (``d2h_fetches``).
+device is ordered.  The sampler's PRNG keys are derived on the host
+from those arrays; the only device-to-host transfer per step is one
+fetch of the step's tokens (with the beam candidates, and the spec
+step's emissions and counts, in the same buffer: ``d2h_fetches``),
+plus one per speculative draft pass (``draft_d2h_fetches``).
 """
 from __future__ import annotations
 
@@ -47,6 +64,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.core.ternary import TernaryScales
 from repro_torch.core.weights import TernaryWeight
 from repro_torch.models import transformer as tfm
@@ -153,6 +171,73 @@ def make_packed_unified_step(cfg: ArchConfig, impl: Optional[str] = None):
     return packed_step
 
 
+def _column_logits(params, cfg: ArchConfig, rows: torch.Tensor,
+                   cols: torch.Tensor):
+    """Logits of the (slots, C, d) hidden rows at grid columns ``cols``
+    (slots, J), one column at a time: every head product has M = slots
+    rows, as the unified step's has, so a position's logits are the same
+    bits whichever step computes them (the lossless contract of greedy
+    speculation)."""
+    idx = cols.to(rows.device).long()[..., None]
+    rows = rows.gather(1, idx.expand(-1, -1, rows.shape[-1]))
+    return torch.stack([tfm.logits(params, cfg, rows[:, j:j + 1])[:, 0]
+                        for j in range(rows.shape[1])], dim=1)
+
+
+def make_draft_step(cfg: ArchConfig, impl: Optional[str] = None):
+    """The speculative DRAFT step: the paged unified step at chunk 1,
+    built from the cheap-encoding draft config (the target's codes read
+    through ``TernaryPolicy.draft``).  Proposals are the masked greedy
+    argmax, made on the device, so the host fetches one token per slot
+    per draft pass: a deterministic proposal (q = delta at the argmax),
+    which reduces exact rejection sampling to accepting d with
+    probability p(d) in the verify step."""
+    def draft_step(params, batch, caches, cache_len, n_new, block_tables,
+                   slot_map, mask):
+        hidden, caches, _ = tfm.forward(
+            params, cfg, batch, mode="mixed", caches=caches,
+            cache_len=cache_len, n_new=n_new, block_tables=block_tables,
+            slot_map=slot_map, impl=impl)
+        lg = tfm.logits(params, cfg, hidden[:, :1])[:, 0]
+        return greedy_token(apply_token_masks(lg, mask)), caches
+    return draft_step
+
+
+def make_paged_spec_step(cfg: ArchConfig, impl: Optional[str] = None):
+    """The padded VERIFY step: ``make_paged_unified_step`` returning the
+    logits of grid positions (slots, J, vocab): column j of a decode
+    slot predicts position cache_len + j + 1, which judges draft token
+    j + 1.  ``cols`` (slots, J) names each slot's columns: the engine
+    asks for the ones its accept function reads (the reference returns
+    every column).  The verify forward overwrites the draft passes'
+    cheap-encoding KV with target KV at every scheduled position."""
+    def paged_spec_step(params, batch, caches, cache_len, n_new,
+                        block_tables, slot_map, cols):
+        hidden, caches, _ = tfm.forward(
+            params, cfg, batch, mode="mixed", caches=caches,
+            cache_len=cache_len, n_new=n_new, block_tables=block_tables,
+            slot_map=slot_map, impl=impl)
+        return _column_logits(params, cfg, hidden, cols), caches
+    return paged_spec_step
+
+
+def make_packed_spec_step(cfg: ArchConfig, impl: Optional[str] = None):
+    """The token-packed VERIFY step: the flat layout.  ``row_idx``
+    (slots, chunk) holds the flat index of each slot's j-th scheduled
+    token (rows past ``n_new`` point at 0 and are never read), so the
+    logits at ``cols`` keep the padded verify step's (slots, J, vocab)
+    shape and one accept function serves both layouts."""
+    def packed_spec_step(params, batch, caches, positions, n_new, seg_ids,
+                         block_tables, slot_map, row_idx, cols):
+        hidden, caches, _ = tfm.forward(
+            params, cfg, batch, mode="mixed", caches=caches,
+            cache_len=positions, n_new=n_new, block_tables=block_tables,
+            slot_map=slot_map, impl=impl, seg_ids=seg_ids)
+        rows = hidden[row_idx.to(hidden.device).long(), 0]  # (slots, C, d)
+        return _column_logits(params, cfg, rows, cols), caches
+    return packed_spec_step
+
+
 def copy_kv_block(caches, src: int, dst: int):
     """Copy one physical KV block (every layer; K, V and any scales) in
     place — the copy-on-write primitive of partial-tail prefix sharing."""
@@ -256,6 +341,170 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# sampling: per-request counter-based streams (core/prng)
+# ---------------------------------------------------------------------------
+
+def sample_token(logits: torch.Tensor, key: Optional[torch.Tensor] = None,
+                 temperature: float = 1.0) -> torch.Tensor:
+    """Sample (or argmax) the next token.  Key consumption is explicit:
+    greedy routing (``temperature <= 0``) takes ``key=None`` and consumes
+    nothing; sampling requires a key.  ``key`` is one (2,) key for the
+    whole ``logits`` array or one key per row ((..., 2) against (...,
+    vocab)), each drawing ``jax.random.categorical`` of its rows."""
+    if temperature <= 0:
+        if key is not None:
+            raise ValueError(
+                "sample_token with temperature <= 0 is greedy and "
+                "consumes no PRNG key; pass key=None — key consumption "
+                "must be explicit and identical across code paths")
+        return greedy_token(logits)
+    if key is None:
+        raise ValueError("sample_token with temperature > 0 draws from the "
+                         "PRNG stream and requires a key")
+    return prng.categorical(key.to(logits.device),
+                            logits.float() / temperature).to(torch.int32)
+
+
+def derive_sample_key(base_key: torch.Tensor, uid, sample_index,
+                      token_index) -> torch.Tensor:
+    """The per-request stream: ``fold_in(fold_in(fold_in(base, uid),
+    sample_index), token_index)``, a pure function of the request's
+    identity and position (not of slot, step or schedule).  The three
+    coordinates may be tensors; they broadcast."""
+    k = prng.fold_in(base_key, uid)
+    k = prng.fold_in(k, sample_index)
+    return prng.fold_in(k, token_index)
+
+
+def apply_token_masks(logits: torch.Tensor, mask) -> torch.Tensor:
+    """Guided decoding: constrain (slots, vocab) logits to a compact
+    (slots, mask_width) buffer of allowed ids padded with -1 (a row of
+    all -1 is unconstrained).  Returns float32 logits with every other
+    id at -1e30.  Only the compact buffer crosses to the device."""
+    lg = logits.float()
+    mask = torch.as_tensor(mask).to(lg.device).long()
+    vocab = lg.shape[-1]
+    valid = mask >= 0
+    hits = torch.zeros(lg.shape, dtype=torch.int32, device=lg.device)
+    hits.scatter_add_(-1, mask.clamp(0, vocab - 1), valid.to(torch.int32))
+    keep = (hits > 0) | ~valid.any(-1, keepdim=True)
+    return torch.where(keep, lg, torch.full_like(lg, -1e30))
+
+
+def _ids(ids) -> torch.Tensor:
+    """(slots, 3) stream coordinates (uid, sample_index, token_index) as
+    a host int64 tensor."""
+    if isinstance(ids, torch.Tensor):
+        return ids.cpu().long()
+    return torch.from_numpy(np.asarray(ids, np.int64))
+
+
+def make_sample_fn(temperature: float, topk: int):
+    """The per-step sampling tail: mask application, per-request
+    ``derive_sample_key`` streams (keys derived on the host from the
+    stream coordinates; the draw on the logits' device), categorical (or
+    argmax) selection and, when ``topk`` > 0, the top-k log-prob
+    candidates the host's beam bookkeeping consumes (ties to the lower
+    id, as ``jax.lax.top_k``: a stable descending sort)."""
+    def sample_fn(lg, base_key, ids, mask):
+        lgm = apply_token_masks(lg, mask)
+        if temperature <= 0:
+            toks = sample_token(lgm, None, temperature)
+        else:
+            c = _ids(ids)
+            keys = derive_sample_key(base_key.cpu(), c[:, 0], c[:, 1],
+                                     c[:, 2])
+            toks = sample_token(lgm, keys, temperature)
+        if topk:
+            lp = torch.log_softmax(lgm, dim=-1)
+            cand_lp, cand_ids = torch.sort(lp, dim=-1, descending=True,
+                                           stable=True)
+            return (toks, cand_ids[:, :topk].to(torch.int32),
+                    cand_lp[:, :topk])
+        return toks
+    return sample_fn
+
+
+# one sampler per (temperature, topk), shared by every engine
+_SAMPLERS: Dict[Tuple[float, int], Callable] = {}
+
+
+def _get_sampler(temperature: float, topk: int):
+    key = (float(temperature), int(topk))
+    if key not in _SAMPLERS:
+        _SAMPLERS[key] = make_sample_fn(*key)
+    return _SAMPLERS[key]
+
+
+# sub-stream tags of the acceptance test and of the rejection resample,
+# folded onto a position's key, so the BONUS draw (emission j == k)
+# consumes the raw derive_sample_key(base, uid, si, t0 + j): a spec
+# engine that drafts nothing emits what the non-spec sampled engine does
+_SPEC_ACCEPT_TAG = 1
+_SPEC_RESAMPLE_TAG = 2
+
+
+def make_spec_accept_fn(temperature: float):
+    """Speculative acceptance over the verify step's all-position logits.
+
+    Per slot, column ``start + j`` of ``lg`` (slots, C, vocab) scores
+    emission j (token index ``ids[:, 2] + j``); draft token j + 1 sits
+    at column ``start + j + 1`` of ``toks`` (as wide as ``lg``, or, for
+    logits gathered at columns 0 .. C - 1 of a wider grid, one wider).  Greedy engines accept while the masked argmax reproduces the
+    draft; sampled engines run exact rejection sampling against the
+    deterministic draft: accept d with probability p(d) (a uniform from
+    the ACCEPT sub-key), else draw the correction from p with d banned
+    (RESAMPLE sub-key); the bonus after an all-accepted run draws from
+    the raw key.  Only emissions 0 .. max(n_draft) are evaluated (the
+    reference evaluates every column; the host never reads past
+    ``n_emit``).  Returns (emitted (slots, C) int32, n_emit (slots,)
+    int32 = accepted run + 1)."""
+    def accept_fn(lg, toks, start, n_draft, base_key, ids, masks):
+        dev = lg.device
+        s, c, vocab = lg.shape
+        start = torch.as_tensor(start).cpu().long()
+        n_draft = torch.as_tensor(n_draft).cpu().long()
+        n_pos = min(c, int(n_draft.max()) + 1 if n_draft.numel() else 1)
+        jj = torch.arange(n_pos)
+        cols = (start[:, None] + jj).clamp(0, c - 1)
+        toks = torch.as_tensor(toks).cpu().long()
+        d_next = toks.gather(
+            1, (start[:, None] + jj + 1).clamp(0, toks.shape[1] - 1)
+        ).to(dev)
+        in_draft = (jj[None, :] < n_draft[:, None]).to(dev)
+        rows = lg.gather(1, cols.to(dev)[..., None].expand(s, n_pos, vocab))
+        m = torch.as_tensor(masks)[:, :n_pos]
+        lgm = apply_token_masks(rows.reshape(s * n_pos, vocab),
+                                m.reshape(s * n_pos, -1)
+                                ).reshape(s, n_pos, vocab)
+        if temperature <= 0:
+            e = lgm.argmax(-1)
+            acc = in_draft & (e == d_next)
+        else:
+            c3 = _ids(ids)
+            key = derive_sample_key(base_key.cpu(), c3[:, 0, None],
+                                    c3[:, 1, None], c3[:, 2, None] + jj)
+            u = prng.uniform(prng.fold_in(key, _SPEC_ACCEPT_TAG)).to(dev)
+            scaled = lgm / temperature
+            p = torch.softmax(scaled, dim=-1).gather(
+                -1, d_next[..., None])[..., 0]
+            acc = in_draft & (u < p)
+            banned = lgm.scatter(-1, d_next[..., None], float("-inf"))
+            resample = prng.categorical(
+                prng.fold_in(key, _SPEC_RESAMPLE_TAG).to(dev),
+                banned / temperature)
+            bonus = prng.categorical(key.to(dev), scaled)
+            e = torch.where(acc, d_next, torch.where(in_draft, resample,
+                                                     bonus))
+        a = torch.cumprod(acc.to(torch.int32), dim=1).sum(1)
+        emitted = torch.zeros((s, c), dtype=torch.int32, device=dev)
+        emitted[:, :n_pos] = e.to(torch.int32)
+        return emitted, (a + 1).to(torch.int32)
+    return accept_fn
+
+
+
+# ---------------------------------------------------------------------------
 # token-budget continuous-batching scheduler
 # ---------------------------------------------------------------------------
 
@@ -271,11 +520,25 @@ class Request:
     truncated: bool = False      # cache filled before max_new_tokens
     submit_step: int = -1
     token_steps: List[int] = dataclasses.field(default_factory=list)
-    # not ported yet; submit() rejects anything but the defaults
+    # parallel sampling: n > 1 expands into n siblings sharing the uid
+    # (and the prompt's full blocks: one prefill); 'independent' draws
+    # each from its own stream (sample_index), 'beam' runs width-n beam
+    # search (cum_logprob is a hypothesis' score); the parent never
+    # enters the queue, its children are ``siblings``
     n: int = 1
     sample_mode: str = "independent"
+    sample_index: int = 0
+    siblings: Optional[List["Request"]] = None
+    cum_logprob: float = 0.0
+    # guided decoding: callback(out_tokens) -> allowed ids of the next
+    # position (None: unconstrained)
     allowed_tokens: Optional[Callable[[List[int]], Optional[Sequence[int]]]] \
         = None
+
+    @property
+    def first_token_step(self) -> int:
+        """Step index of the first emitted token (-1 before it exists)."""
+        return self.token_steps[0] if self.token_steps else -1
 
 
 def _count_params(tree) -> int:
@@ -318,26 +581,42 @@ class ServeEngine:
     crossover prices cheaper: 2 * n_params FLOPs per replayed token at
     ``peak_flops`` against a round trip of the blocks' bytes at
     ``host_link_bw``; H100 defaults) or 'none' (never; an undersized pool
-    can then livelock, and ``run_until_done`` raises).  ``device``
-    defaults to CUDA (raises without it).
+    can then livelock, and ``run_until_done`` raises).
+
+    Decoding: ``greedy`` (argmax) or sampled at ``temperature`` from the
+    streams of ``seed``; ``allowed_tokens`` rows of up to ``mask_width``
+    ids; ``oversize`` 'error' rejects a prompt longer than ``max_len`` at
+    ``submit``, 'truncate' keeps its last ``max_len`` tokens.  ``spec_k``
+    > 0 drafts up to that many tokens per decoding slot through
+    ``draft_act_mode`` (leftover budget only) and verifies them in the
+    step.  ``device`` defaults to CUDA (raises without it).
     """
 
     def __init__(self, params, cfg: ArchConfig, batch_slots: int,
-                 max_len: int, greedy: bool = True, chunk: int = 16,
+                 max_len: int, greedy: bool = True, seed: int = 0,
+                 oversize: str = "error", chunk: int = 16,
                  token_budget: Optional[int] = None, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefix_reuse: bool = True,
                  preempt: str = "auto", packed: bool = False,
-                 spec_k: int = 0, peak_flops: float = H100_BF16_FLOPS,
+                 temperature: float = 1.0, mask_width: int = 8,
+                 spec_k: int = 0, draft_act_mode: str = "int2",
+                 peak_flops: float = H100_BF16_FLOPS,
                  host_link_bw: float = H100_HOST_LINK_BW, device="cuda"):
         if chunk < 1:
             raise ValueError(f"chunk {chunk} < 1")
         if preempt not in ("auto", "swap", "recompute", "none"):
             raise ValueError(f"preempt {preempt!r}: expected 'auto', "
                              f"'swap', 'recompute' or 'none'")
-        for flag, what in ((spec_k, "spec_k > 0 (speculative decoding)"),
-                           (not greedy, "greedy=False (sampling)")):
-            if flag:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if oversize not in ("error", "truncate"):
+            raise ValueError(f"oversize {oversize!r}: expected 'error' or "
+                             f"'truncate'")
+        if temperature <= 0 and not greedy:
+            raise ValueError(f"temperature {temperature} <= 0 is spelled "
+                             f"greedy=True")
+        if mask_width < 1:
+            raise ValueError(f"mask_width {mask_width} < 1")
+        if spec_k < 0:
+            raise ValueError(f"spec_k {spec_k} < 0")
         tfm._check_dense(cfg)
         self.device = resolve_device(device)
         table = params["embed"]["table"]
@@ -348,6 +627,12 @@ class ServeEngine:
         self.cfg = cfg
         self.slots = batch_slots
         self.max_len = max_len
+        self.greedy = bool(greedy)
+        self.oversize = oversize
+        self.temperature = float(temperature)
+        self.mask_width = int(mask_width)
+        # every sampled key is derived on the host from this base key
+        self._base_key = prng.prng_key(seed)
         self.chunk = min(chunk, max_len)
         self.token_budget = (batch_slots + self.chunk
                              if token_budget is None else token_budget)
@@ -401,12 +686,13 @@ class ServeEngine:
         self._tail_cache: Dict[int, Tuple[tuple, tuple]] = {}
         self._last_slot_map: Optional[np.ndarray] = None
         # preemption/swap: admission order (victims are the youngest),
-        # the host swap arena (uid -> resume prompt + saved blocks) and
+        # the host swap arena ((uid, sample_index) -> resume prompt +
+        # saved blocks; siblings preempt and resume independently) and
         # the per-slot flag that stops a resumed decode's refill from
         # re-appending its pending token
         self._admit_seq = 0
         self.slot_seq = np.zeros((batch_slots,), np.int64)
-        self._resume: Dict[int, Dict[str, Any]] = {}
+        self._resume: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self._skip_sample = np.zeros((batch_slots,), bool)
         self.preemptions = 0
         self.swapped_out_blocks = 0
@@ -424,6 +710,21 @@ class ServeEngine:
         self.swap_h2d_bytes = 0
         self.swap_h2d_seconds = 0.0
         self.preempt_choices = {"swap": 0, "recompute": 0}
+        # parallel sampling / beam / guided decoding
+        self.sibling_requests = 0    # sample_index > 0 admissions
+        self.beam_forks = 0          # beam hypothesis adoptions (CoW)
+        self.masked_tokens = 0       # emitted positions under a mask row
+        # live beam groups: uid -> its n sibling Requests
+        self._beam_groups: Dict[int, List[Request]] = {}
+        # speculative decoding (all zero when spec_k == 0):
+        # draft_tokens == accepted + rejected after every step, and each
+        # verify emits its accepted run plus one token (the correction,
+        # or the bonus when every draft survived: bonus_tokens)
+        self.draft_tokens = 0
+        self.accepted_tokens = 0
+        self.rejected_tokens = 0
+        self.bonus_tokens = 0
+        self.draft_d2h_fetches = 0   # one per draft pass
         # crossover inputs, counted as the reference counts them: every
         # tensor of the params tree, and the KV bytes of one block
         self._n_params = _count_params(params)
@@ -432,6 +733,16 @@ class ServeEngine:
             for t in layer.values()) / max(num_blocks, 1)
         self._step = (make_packed_unified_step(cfg) if self.packed
                       else make_paged_unified_step(cfg))
+        self.spec_k = int(spec_k)
+        self.draft_act_mode = draft_act_mode
+        if self.spec_k:
+            self._draft_cfg = cfg.replace(
+                ternary=cfg.ternary.draft(draft_act_mode))
+            self._draft_step = make_draft_step(self._draft_cfg)
+            self._spec_step = (make_packed_spec_step(cfg) if self.packed
+                               else make_paged_spec_step(cfg))
+            self._accept = make_spec_accept_fn(
+                0.0 if self.greedy else self.temperature)
 
     # -- submission ---------------------------------------------------------
 
@@ -439,16 +750,47 @@ class ServeEngine:
         plen = len(req.prompt)
         if plen < 1:
             raise ValueError("empty prompt")
-        if plen > self.max_len:
+        if plen > self.max_len and self.oversize != "truncate":
             raise ValueError(
                 f"prompt of {plen} tokens exceeds the engine's cache "
-                f"capacity max_len={self.max_len}")
-        if req.n != 1 or req.sample_mode != "independent":
+                f"capacity max_len={self.max_len}; resubmit a shorter "
+                f"prompt or construct the engine with oversize='truncate'")
+        if req.media is not None:
             raise NotImplementedError(
-                "n > 1 siblings and beam search are not ported yet")
-        if req.allowed_tokens is not None or req.media is not None:
-            raise NotImplementedError(
-                "guided masks and media are not ported yet")
+                "media inputs (cross-attention stacks) are not ported")
+        if req.sample_mode not in ("independent", "beam"):
+            raise ValueError(f"unknown sample_mode {req.sample_mode!r}")
+        if req.n < 1:
+            raise ValueError(f"Request.n must be >= 1, got {req.n}")
+        if req.sample_mode == "beam":
+            if self.spec_k:
+                raise ValueError(
+                    "speculative decoding (spec_k > 0) does not compose "
+                    "with beam search: beam expansion consumes per-slot "
+                    "top-k candidates, not an accept/reject chain — "
+                    "submit sample_mode='independent' or construct the "
+                    "engine with spec_k=0")
+            if self.greedy and req.n > 1:
+                raise ValueError(
+                    "beam search scores log-probs from the sampler — "
+                    "construct the engine with greedy=False")
+            if req.n > self.slots:
+                raise ValueError(
+                    f"beam width {req.n} exceeds batch_slots={self.slots}: "
+                    f"every live hypothesis needs a slot for synchronized "
+                    f"expansion")
+        if req.n > 1:
+            # n siblings share the uid; the parent never enters the queue
+            kids = [dataclasses.replace(req, sample_index=s, siblings=None,
+                                        out_tokens=[], token_steps=[])
+                    for s in range(req.n)]
+            req.siblings = kids
+            if req.sample_mode == "beam":
+                self._beam_groups[req.uid] = kids
+            for kid in kids:
+                kid.submit_step = self.iters
+                self.queue.append(kid)
+            return
         req.submit_step = self.iters
         self.queue.append(req)
 
@@ -569,12 +911,33 @@ class ServeEngine:
         for slot in range(self.slots):
             if self.slot_req[slot] is not None or not self.queue:
                 continue
+            head = self.queue[0]
+            res = self._resume.get((head.uid, head.sample_index))
+            # a sibling waits for its leader (the same-uid slot admitted
+            # first) to finish prefilling and register the prompt's full
+            # blocks, then shares them by chain hash: one prefill serves
+            # all n.  FIFO: admission stalls rather than skip it
+            if head.sample_index > 0 and res is None and any(
+                    self.slot_req[s] is not None
+                    and self.slot_req[s].uid == head.uid
+                    and self.slot_fill[s] < len(self.slot_prompt[s])
+                    for s in range(self.slots)):
+                break
             if self.pool.blocks_free < 1 and self._active_slots():
                 break
             req = self.queue.pop(0)
-            res = self._resume.pop(req.uid, None)
-            tokens_in = np.asarray(req.prompt if res is None
-                                   else res["prompt"], np.int32)
+            if res is not None:
+                del self._resume[(req.uid, req.sample_index)]
+                tokens_in = res["prompt"]
+            else:
+                if req.sample_index > 0:
+                    self.sibling_requests += 1
+                tokens_in = req.prompt
+                if len(tokens_in) > self.max_len:
+                    # oversize='truncate': the most recent context, the
+                    # caller's Request untouched
+                    tokens_in = tokens_in[len(tokens_in) - self.max_len:]
+            tokens_in = np.asarray(tokens_in, np.int32)
             plen = len(tokens_in)
             resumed_dec = bool(res and res["decoding"])
             self.admitted_prompt_tokens += plen
@@ -734,9 +1097,9 @@ class ServeEngine:
             for pos, (jb, _) in enumerate(own):
                 swap[jb] = {k: t[:, pos] for k, t in fetched.items()}
             self.swapped_out_blocks += len(own)
-        self._resume[req.uid] = {"prompt": eff,
-                                 "decoding": bool(req.out_tokens),
-                                 "covered": covered, "swap": swap}
+        self._resume[(req.uid, req.sample_index)] = {
+            "prompt": eff, "decoding": bool(req.out_tokens),
+            "covered": covered, "swap": swap}
         # the never-scheduled prompt remainder leaves the admitted count
         # (re-admission counts the resume prompt in full), keeping
         # scheduled_prefill + prefix_hit + swapped_in == admitted exact
@@ -868,6 +1231,9 @@ class ServeEngine:
             if self.prefix_reuse:
                 self._donate_tail(i)
             self._release_slot(i)
+            group = self._beam_groups.get(req.uid)
+            if group is not None and all(k.done for k in group):
+                del self._beam_groups[req.uid]
 
     def _register_completed(self, i: int, old_len: int, new_len: int):
         """Publish the chain hash of every block slot i completed."""
@@ -881,12 +1247,17 @@ class ServeEngine:
 
     def step(self):
         """One engine iteration: admit -> one unified mixed step (the
-        padded grid, or its flattened tokens when ``packed``)."""
+        padded grid, or its flattened tokens when ``packed``), or the
+        speculative draft passes and verify step when ``spec_k`` > 0."""
         this_step = self.iters
         self.iters += 1
         self._admit()
         tokens, n_new, slot_map, decode_slots, finishing = self._schedule()
         if not n_new.any():
+            return
+        if self.spec_k:
+            self._step_spec(this_step, tokens, n_new, slot_map,
+                            decode_slots, finishing)
             return
         if self.packed:
             flat, seg, pos, nn_, smap, last_idx, bucket = \
@@ -918,18 +1289,421 @@ class ServeEngine:
             if self.prefix_reuse:
                 self._register_completed(i, int(old_len[i]),
                                          int(old_len[i]) + t)
-        toks = greedy_token(lg).cpu().numpy()        # the one d2h fetch
+        # rows that emit a token this step (a row's token index is
+        # len(out_tokens) before the append)
+        sample_rows = decode_slots + [i for i in finishing
+                                      if not self._skip_sample[i]]
+        beam_rows = [i for i in sample_rows
+                     if self.slot_req[i].sample_mode == "beam"]
+        use_sampler = (not self.greedy) or bool(beam_rows) or any(
+            self.slot_req[i].allowed_tokens is not None for i in sample_rows)
+        cand_ids = cand_lps = None
+        if not use_sampler:
+            toks = greedy_token(lg).cpu().numpy()     # the one d2h fetch
+        else:
+            ids, mask = self._sample_inputs(sample_rows)
+            topk = max((self.slot_req[i].n for i in beam_rows), default=0)
+            sampler = _get_sampler(0.0 if self.greedy else self.temperature,
+                                   topk)
+            out = sampler(lg, self._base_key, ids, _host(mask))
+            if topk:
+                # tokens, candidate ids and the bits of their log-probs
+                # in one buffer: still one fetch
+                toks_d, ids_d, lps_d = out
+                got = torch.cat([toks_d[:, None], ids_d,
+                                 lps_d.contiguous().view(torch.int32)],
+                                dim=1).cpu()
+                toks = got[:, 0].numpy()
+                cand_ids = got[:, 1:1 + topk].numpy()
+                cand_lps = got[:, 1 + topk:].contiguous().view(
+                    torch.float32).numpy()
+            else:
+                toks = out.cpu().numpy()
         self.d2h_fetches += 1
-        for i in decode_slots + finishing:
-            if i in finishing and self._skip_sample[i]:
-                # a resumed decode's refill: its pending token is already
-                # out_tokens[-1]; the (identical) re-sample is dropped
-                self._skip_sample[i] = False
+        beam_decode = [i for i in decode_slots if i in beam_rows]
+        for i in decode_slots:
+            if i in beam_decode:
                 continue
             req = self.slot_req[i]
             req.out_tokens.append(int(toks[i]))
             req.token_steps.append(this_step)
             self._finish_check(i)
+        if beam_decode:
+            self._beam_decode(beam_decode, cand_ids, cand_lps, this_step)
+        for i in finishing:
+            if self._skip_sample[i]:
+                # a resumed decode's refill: its pending token is already
+                # out_tokens[-1]; the (identical) re-sample is dropped
+                self._skip_sample[i] = False
+                continue
+            req = self.slot_req[i]
+            if req.sample_mode == "beam":
+                # beam root: sibling s seeds its hypothesis with the s-th
+                # best first token (identical prompts give identical
+                # logits, so this is the joint top-n of the root)
+                req.out_tokens.append(int(cand_ids[i, req.sample_index]))
+                req.cum_logprob += float(cand_lps[i, req.sample_index])
+            else:
+                req.out_tokens.append(int(toks[i]))
+            req.token_steps.append(this_step)
+            self._finish_check(i)
+
+    def _step_spec(self, this_step: int, tokens: np.ndarray,
+                   n_new: np.ndarray, slot_map: np.ndarray,
+                   decode_slots: List[int], finishing: List[int]):
+        """The speculative tail of ``step()``: extend each scheduled
+        decode row with up to ``spec_k`` draft tokens funded by the
+        LEFTOVER token budget (decodes and prefill chunks keep priority),
+        run that many draft passes to propose them, verify all k + 1
+        positions in ONE mixed step of the engine's layout, and accept
+        or roll back.
+
+        Rollback: the verify forward wrote target KV at positions
+        [cache_len, cache_len + k]; acceptance of ``a`` drafts commits
+        coverage cache_len + 1 + a, so ``cache_len`` retreats to it (the
+        suffix is masked by length and overwritten later) and every
+        block past it is released.  Chain-hash registration waits for
+        accepted coverage, so a block holding rejected-draft KV is never
+        matchable.  ``validate()`` holds after every step."""
+        oob = self.pool.num_blocks * self.block_size
+        bs = self.block_size
+        # -- plan: draft grants from the leftover budget -------------------
+        leftover = max(0, self.token_budget - int(n_new.sum()))
+        k_of: Dict[int, int] = {}
+        for i in decode_slots:
+            if leftover <= 0:
+                break
+            req = self.slot_req[i]
+            cl = int(self.cache_len[i])
+            k = min(self.spec_k, self.chunk - 1, leftover,
+                    self.max_len - 1 - cl,
+                    req.max_new_tokens - len(req.out_tokens) - 1)
+            if k <= 0:
+                continue
+            # grow the table without preempting (speculation is never
+            # worth an eviction); k shrinks to the blocks obtained
+            while int(self.slot_nblocks[i]) * bs < cl + 1 + k:
+                bid = self._alloc_block()
+                if bid is None:
+                    break
+                self.block_tables[i, self.slot_nblocks[i]] = bid
+                self.slot_nblocks[i] += 1
+            k = min(k, int(self.slot_nblocks[i]) * bs - cl - 1)
+            if k <= 0:
+                continue
+            pos = cl + 1 + np.arange(k)
+            blk = self.block_tables[i, pos // bs]
+            slot_map[i, 1:1 + k] = blk * bs + pos % bs
+            n_new[i] = 1 + k
+            k_of[i] = k
+            leftover -= k
+        # -- sample-row operands: mask row j constrains emission j ---------
+        sample_rows = decode_slots + [i for i in finishing
+                                      if not self._skip_sample[i]]
+        ids = np.zeros((self.slots, 3), np.int64)
+        masks = np.full((self.slots, self.chunk, self.mask_width), -1,
+                        np.int32)
+        had_mask = np.zeros((self.slots, self.chunk), bool)
+        for i in sample_rows:
+            req = self.slot_req[i]
+            ids[i] = (req.uid, req.sample_index, len(req.out_tokens))
+            row = self._mask_row(req, req.out_tokens)
+            if row is not None:
+                masks[i, 0, :len(row)] = row
+                had_mask[i, 0] = True
+        # -- draft passes: pass j reads grid token j and proposes token
+        # j + 1 under emission j's mask (a masked token is never proposed)
+        for j in range(max(k_of.values(), default=0)):
+            active = [i for i, k in k_of.items() if k > j]
+            d_tok = np.zeros((self.slots, 1), np.int32)
+            d_cl = np.zeros((self.slots,), np.int32)
+            d_nn = np.zeros((self.slots,), np.int32)
+            d_map = np.full((self.slots, 1), oob, np.int32)
+            for i in active:
+                d_tok[i, 0] = tokens[i, j]
+                d_cl[i] = int(self.cache_len[i]) + j
+                d_nn[i] = 1
+                d_map[i, 0] = slot_map[i, j]
+            toks_d, self.caches = self._draft_step(
+                self.params, {"tokens": _host(d_tok)}, self.caches,
+                _host(d_cl), _host(d_nn), _host(self.block_tables),
+                _host(d_map), _host(masks[:, j]))
+            d_host = toks_d.cpu().numpy()
+            self.draft_d2h_fetches += 1
+            for i in active:
+                tokens[i, 1 + j] = int(d_host[i])
+                req = self.slot_req[i]
+                row = self._mask_row(req, list(req.out_tokens) + [
+                    int(t) for t in tokens[i, 1:2 + j]])
+                if row is not None:
+                    masks[i, j + 1, :len(row)] = row
+                    had_mask[i, j + 1] = True
+        # -- verify: ONE mixed step over every slot's k + 1 positions, the
+        # logits of the columns acceptance reads: emission j of a slot is
+        # column start + j (a decode row starts at 0, a finishing prefill
+        # at its last token) ----------------------------------------------
+        start = np.zeros((self.slots,), np.int64)
+        n_draft = np.zeros((self.slots,), np.int64)
+        for i in range(self.slots):
+            if i in decode_slots:
+                n_draft[i] = k_of.get(i, 0)
+            elif n_new[i]:
+                start[i] = int(n_new[i]) - 1
+        n_pos = int(n_draft.max()) + 1
+        at = np.minimum(start[:, None] + np.arange(n_pos + 1),
+                        self.chunk - 1)
+        cols = _host(at[:, :n_pos])
+        if self.packed:
+            flat, seg, pos, nn_, smap, row_idx, bucket = \
+                self._flatten_spec_grid(tokens, n_new, slot_map)
+            lg, self.caches = self._spec_step(
+                self.params, {"tokens": _host(flat)}, self.caches,
+                _host(pos), _host(nn_), _host(seg), _host(self.block_tables),
+                _host(smap), _host(row_idx), cols)
+            self.grid_tokens += bucket
+        else:
+            lg, self.caches = self._spec_step(
+                self.params, {"tokens": _host(tokens)}, self.caches,
+                _host(self.cache_len), _host(n_new),
+                _host(self.block_tables), _host(slot_map), cols)
+            self.grid_tokens += self.slots * self.chunk
+        emitted, n_emit = self._accept(
+            lg, _host(np.take_along_axis(tokens, at, 1)),
+            _host(np.zeros_like(start)), _host(n_draft), self._base_key,
+            ids, _host(masks))
+        got = torch.cat([emitted, n_emit[:, None]], dim=1).cpu().numpy()
+        self.d2h_fetches += 1
+        emitted, n_emit = got[:, :-1], got[:, -1]
+        # -- host bookkeeping: prefill rows as in the plain step -----------
+        old_len = self.cache_len.copy()
+        self.scheduled_tokens += int(n_new.sum())
+        self._last_slot_map = np.where(
+            np.arange(self.chunk)[None, :] < n_new[:, None], slot_map, -1)
+        for i in range(self.slots):
+            t = int(n_new[i])
+            if not t or i in decode_slots:
+                continue
+            self.cache_len[i] += t
+            self.slot_fill[i] += t
+            self.scheduled_prefill_tokens += t
+            self.slot_hist[i].extend(int(x) for x in tokens[i, :t])
+            if self.prefix_reuse:
+                self._register_completed(i, int(old_len[i]),
+                                         int(old_len[i]) + t)
+        # -- decode rows: acceptance, rollback, emission -------------------
+        for i in decode_slots:
+            req = self.slot_req[i]
+            k = k_of.get(i, 0)
+            a = int(n_emit[i]) - 1
+            if not 0 <= a <= k:
+                raise AssertionError(f"slot {i}: accepted {a} of {k} drafts")
+            self.draft_tokens += k
+            self.accepted_tokens += a
+            self.rejected_tokens += k - a
+            if k and a == k:
+                self.bonus_tokens += 1
+            new_cl = int(old_len[i]) + 1 + a
+            self.cache_len[i] = new_cl
+            self.slot_hist[i].append(int(tokens[i, 0]))
+            self.slot_hist[i].extend(int(emitted[i, j]) for j in range(a))
+            # rollback: release the blocks past the accepted coverage
+            need = -(-new_cl // bs)
+            while int(self.slot_nblocks[i]) > need:
+                nb = int(self.slot_nblocks[i]) - 1
+                self.pool.decref(int(self.block_tables[i, nb]))
+                self.block_tables[i, nb] = -1
+                self.slot_nblocks[i] = nb
+            if self.prefix_reuse:
+                self._register_completed(i, int(old_len[i]), new_cl)
+            for j in range(a + 1):
+                if had_mask[i, j]:
+                    self.masked_tokens += 1
+                req.out_tokens.append(int(emitted[i, j]))
+                req.token_steps.append(this_step)
+            self._finish_check(i)
+        for i in finishing:
+            if self._skip_sample[i]:
+                self._skip_sample[i] = False
+                continue
+            req = self.slot_req[i]
+            if had_mask[i, 0]:
+                self.masked_tokens += 1
+            req.out_tokens.append(int(emitted[i, 0]))
+            req.token_steps.append(this_step)
+            self._finish_check(i)
+
+    def _flatten_spec_grid(self, tokens: np.ndarray, n_new: np.ndarray,
+                           slot_map: np.ndarray):
+        """``_flatten_grid`` plus the (slots, chunk) map of flat rows the
+        packed verify step gathers its logits through (rows past a
+        slot's ``n_new`` point at flat row 0 and are never read)."""
+        flat, seg, pos, nn_, smap, _, bucket = \
+            self._flatten_grid(tokens, n_new, slot_map)
+        row_idx = np.zeros((self.slots, self.chunk), np.int32)
+        t = 0
+        for i in range(self.slots):
+            k = int(n_new[i])
+            if k:
+                row_idx[i, :k] = t + np.arange(k)
+                t += k
+        return flat, seg, pos, nn_, smap, row_idx, bucket
+
+    def _sample_inputs(self, sample_rows: List[int]
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """The sampler's host operands: per-slot stream coordinates
+        (uid, sample_index, token_index) and the compact mask rows
+        (-1-padded allowed ids; all -1: unconstrained).  Rows that emit
+        nothing this step keep zeros / -1; their output is never read."""
+        ids = np.zeros((self.slots, 3), np.int64)
+        mask = np.full((self.slots, self.mask_width), -1, np.int32)
+        for i in sample_rows:
+            req = self.slot_req[i]
+            ids[i] = (req.uid, req.sample_index, len(req.out_tokens))
+            allowed = self._mask_row(req, req.out_tokens)
+            if allowed is None:
+                continue
+            mask[i, :len(allowed)] = allowed
+            self.masked_tokens += 1
+        return ids, mask
+
+    def _mask_row(self, req: Request,
+                  out_prefix: Sequence[int]) -> Optional[List[int]]:
+        """The validated allowed ids of the position after ``out_prefix``
+        (None: unconstrained).  The speculative path asks with draft-
+        extended prefixes, so masks constrain proposals and emissions
+        alike."""
+        if req.allowed_tokens is None:
+            return None
+        allowed = req.allowed_tokens(list(out_prefix))
+        if allowed is None:
+            return None
+        allowed = list(allowed)
+        if not allowed:
+            raise ValueError(
+                f"allowed_tokens for uid={req.uid} returned an empty set at "
+                f"position {len(out_prefix)} — every continuation is "
+                f"forbidden; return None for an unconstrained position")
+        if len(allowed) > self.mask_width:
+            raise ValueError(
+                f"allowed_tokens returned {len(allowed)} ids > mask_width="
+                f"{self.mask_width}; construct the engine with a larger "
+                f"mask_width")
+        return allowed
+
+    # -- beam search (host bookkeeping over the copy-on-write fork) ---------
+
+    def _beam_decode(self, beam_slots: List[int], cand_ids: np.ndarray,
+                     cand_lps: np.ndarray, this_step: int):
+        """Advance every beam hypothesis that decoded this step.  A group
+        whose live siblings are all present expands jointly
+        (``_beam_expand``); a partially present one (siblings queued,
+        prefilling or preempted) extends each member by its own best
+        token until the group is whole again."""
+        by_uid: Dict[int, List[int]] = {}
+        for i in beam_slots:
+            by_uid.setdefault(self.slot_req[i].uid, []).append(i)
+        for uid, slots_ in by_uid.items():
+            group = self._beam_groups.get(uid)
+            live = [k for k in (group or []) if not k.done]
+            synced = group is not None and live and all(
+                any(self.slot_req[s] is k for s in slots_) for k in live)
+            if synced:
+                self._beam_expand(sorted(slots_), cand_ids, cand_lps,
+                                  this_step)
+            else:
+                self._beam_self_extend(slots_, cand_ids, cand_lps,
+                                       this_step)
+
+    def _beam_self_extend(self, slots_: List[int], cand_ids: np.ndarray,
+                          cand_lps: np.ndarray, this_step: int):
+        """Each present hypothesis takes its own top-1 continuation."""
+        for i in slots_:
+            req = self.slot_req[i]
+            req.out_tokens.append(int(cand_ids[i, 0]))
+            req.cum_logprob += float(cand_lps[i, 0])
+            req.token_steps.append(this_step)
+            self._finish_check(i)
+
+    def _beam_expand(self, slots_: List[int], cand_ids: np.ndarray,
+                     cand_lps: np.ndarray, this_step: int):
+        """Joint expansion: rank the union of every live hypothesis' top-n
+        continuations by cumulative log-prob (deduplicated by (history,
+        token)) and reassign the group's slots to the winners.  A winner
+        adopting another slot's hypothesis re-references its full blocks
+        (``incref_all``) and copies only its partial tail block, before
+        either writes again."""
+        k = len(slots_)
+        bs = self.block_size
+        snap = {}
+        for i in slots_:
+            req = self.slot_req[i]
+            snap[i] = {"out": list(req.out_tokens),
+                       "steps": list(req.token_steps),
+                       "hist": list(self.slot_hist[i]),
+                       "chain": list(self.slot_chain[i]),
+                       "cl": int(self.cache_len[i]),
+                       "table": self.block_tables[i].copy(),
+                       "nb": int(self.slot_nblocks[i])}
+        best: Dict[tuple, tuple] = {}
+        for i in slots_:
+            req = self.slot_req[i]
+            for j in range(req.n):
+                score = req.cum_logprob + float(cand_lps[i, j])
+                sig = (tuple(req.out_tokens), int(cand_ids[i, j]))
+                cur = best.get(sig)
+                if cur is None or score > cur[0] or \
+                        (score == cur[0] and (i, j) < (cur[1], cur[2])):
+                    best[sig] = (score, i, j, int(cand_ids[i, j]))
+        ranked = sorted(best.values(),
+                        key=lambda c: (-c[0], c[1], c[2]))[:k]
+        if len(ranked) != k:
+            raise AssertionError(f"beam: {len(ranked)} candidates for {k} "
+                                 f"hypotheses")
+        need = sum(1 for (_, p, _, _), c in zip(ranked, slots_)
+                   if p != c and snap[p]["cl"] % bs)
+        if self.pool.blocks_free < need:
+            # no spare blocks for the tail copies: never preempt for an
+            # optimization, extend each hypothesis by itself instead
+            self._beam_self_extend(slots_, cand_ids, cand_lps, this_step)
+            return
+        # phase 1: every winner's table, while every parent still holds
+        # its references (a parent losing its slot may be another
+        # winner's ancestor)
+        new_tables: Dict[int, Tuple[np.ndarray, int]] = {}
+        for (_, p, _, _), c in zip(ranked, slots_):
+            if p == c:
+                continue
+            nfull = snap[p]["cl"] // bs
+            table = np.full((self.max_blocks,), -1, np.int32)
+            table[:nfull] = snap[p]["table"][:nfull]
+            self.pool.incref_all([int(b) for b in table[:nfull]])
+            nb = nfull
+            if snap[p]["cl"] % bs:
+                dst = self._alloc_block()
+                self.caches = copy_kv_block(self.caches,
+                                            int(snap[p]["table"][nfull]),
+                                            dst)
+                table[nfull] = dst
+                nb += 1
+            new_tables[c] = (table, nb)
+            self.beam_forks += 1
+        # phase 2: release the losers' references, install the winners
+        for (score, p, _, tok), c in zip(ranked, slots_):
+            if c in new_tables:
+                for jb in range(snap[c]["nb"]):
+                    self.pool.decref(int(snap[c]["table"][jb]))
+                table, nb = new_tables[c]
+                self.block_tables[c] = table
+                self.slot_nblocks[c] = nb
+                self.cache_len[c] = snap[p]["cl"]
+                self.slot_hist[c] = list(snap[p]["hist"])
+                self.slot_chain[c] = list(snap[p]["chain"])
+            req = self.slot_req[c]
+            req.out_tokens = snap[p]["out"] + [tok]
+            req.token_steps = snap[p]["steps"] + [this_step]
+            req.cum_logprob = score
+        for c in slots_:
+            self._finish_check(c)
 
     def _flatten_grid(self, tokens: np.ndarray, n_new: np.ndarray,
                       slot_map: np.ndarray):
@@ -1037,6 +1811,14 @@ class ServeEngine:
             "finished_requests": len(self.finished),
             "output_tokens": self.output_tokens,
             "d2h_fetches": self.d2h_fetches,
+            "sibling_requests": self.sibling_requests,
+            "beam_forks": self.beam_forks,
+            "masked_tokens": self.masked_tokens,
+            "draft_tokens": self.draft_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "rejected_tokens": self.rejected_tokens,
+            "bonus_tokens": self.bonus_tokens,
+            "draft_d2h_fetches": self.draft_d2h_fetches,
             "preempted_waiting": len(self._resume),
             "preemptable_pool": int(self.preemptable),
         }
@@ -1073,7 +1855,8 @@ class ServeEngine:
         if self._last_slot_map is not None:
             written = self._last_slot_map[self._last_slot_map >= 0]
             assert len(np.unique(written)) == len(written), written
-        queued = {r.uid for r in self.queue}
-        active = {self.slot_req[i].uid for i in self._active_slots()}
-        for uid in self._resume:
-            assert uid in queued and uid not in active, uid
+        queued = {(r.uid, r.sample_index) for r in self.queue}
+        active = {(self.slot_req[i].uid, self.slot_req[i].sample_index)
+                  for i in self._active_slots()}
+        for key in self._resume:
+            assert key in queued and key not in active, key

@@ -753,3 +753,158 @@ def test_flash_other_paths_counted(dev, dtype, d, path):
     fk.flash_attention(q, k, k, causal=True)
     counts = launch_counts()
     assert counts["flash_attention"] == counts[f"flash_{path}"] == 1
+
+
+# -- the GQA groups of yi-34b (G = 7) and llama3-405b (G = 16) -------------
+
+@pytest.mark.parametrize("g", [7, 16])
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernel_wide_groups_close_to_plain(dev, g, bs, quant):
+    """Query groups of 7 and 16 heads per KV head at D = 128 (the served
+    widths of yi-34b and llama3-405b), mixed and packed: close to plain,
+    and the packed kernel equal to the mixed kernel token by token."""
+    rng = np.random.default_rng(g + bs)
+    b, sq, hk, d, nblk = 3, 4, 2, 128, 1024 // bs
+    h = g * hk
+    nb = b * nblk + 1
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev, torch.bfloat16)
+    q, k, v = f(b, sq, h, d), f(nb, bs, hk, d), f(nb, bs, hk, d)
+    kw = {}
+    if quant:
+        k, ks = _kv_quantize(k)
+        v, vs = _kv_quantize(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    tbl = torch.from_numpy(rng.permutation(nb)[:b * nblk].reshape(
+        b, nblk).astype(np.int32)).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    vlen = torch.tensor([700, 333, 5], **i32)
+    qoff = vlen - torch.tensor([4, 1, 4], **i32)
+    out = pk.paged_attention(q, k, v, tbl, vlen, q_offset=qoff,
+                             chunk_kv=64, **kw)
+    ref = pk.paged_attention_plain(q, k, v, tbl, vlen, q_offset=qoff,
+                                   chunk_kv=64, **kw)
+    seg = torch.arange(b, **i32).repeat_interleave(sq)
+    pos = qoff[seg.long()] + torch.arange(sq, **i32).repeat(b)
+    packed = pk.paged_packed_attention(
+        q.reshape(b * sq, 1, h, d), k, v, tbl, seg, pos + 1, q_offset=pos,
+        chunk_kv=64, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    rows = out.reshape(b * sq, h, d)
+    valid = (pos < vlen[seg.long()]).cpu()
+    for t in range(b * sq):
+        if valid[t]:
+            assert torch.equal(packed[t, 0], rows[t]), t
+
+
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_paged_kernel_row_does_not_depend_on_later_rows(dev, bs):
+    """The lossless contract of greedy speculation: a query row's output
+    is the same bits whether its slot also carries later rows (a verify
+    step's k + 1 tokens) or the row is decoded alone at its position."""
+    rng = np.random.default_rng(bs)
+    b, h, hk, d, nblk, k = 2, 32, 2, 128, 2048 // bs, 3
+    nb = b * nblk + 1
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev, torch.bfloat16)
+    q, kp, vp = f(b, 16, h, d), f(nb, bs, hk, d), f(nb, bs, hk, d)
+    tbl = torch.from_numpy(rng.permutation(nb)[:b * nblk].reshape(
+        b, nblk).astype(np.int32)).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cl = torch.tensor([300, 1023], **i32)
+    verify = pk.paged_attention(q, kp, vp, tbl, cl + k + 1, q_offset=cl,
+                                chunk_kv=64)
+    for j in range(k + 1):
+        qj = torch.zeros_like(q)
+        qj[:, 0] = q[:, j]
+        alone = pk.paged_attention(qj, kp, vp, tbl, cl + j + 1,
+                                   q_offset=cl + j, chunk_kv=64)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[:, 0], verify[:, j]), j
+
+
+# -- the int2 draft of speculative decoding (row 4 at bits = 2) -----------
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 256), (4096, 13696),
+                                 (13696, 4096)])
+def test_tim_bitserial_int2_draft_shape(dev, k, n):
+    """The draft pass of a policy-A target: M = 8 slots, 2-bit codes,
+    packed weights, on the tc kernel, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randint(0, 4, (8, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    wd = _w_operand(gen, dev, k, n, True)
+    w1 = torch.rand(n, generator=gen, device=dev)
+    w2 = torch.rand(n, generator=gen, device=dev)
+    step = torch.tensor([1.0 / 3], device=dev).bfloat16().float()
+    assert _tim_check("bits", x, wd, w1, w2, step, packed=True,
+                      need_t=False, bits=2) == "tc"
+
+
+# -- the sampler on the card -------------------------------------------------
+
+def test_prng_on_cuda_equals_cpu(dev):
+    from repro_torch.core import prng
+    keys = prng.fold_in(prng.prng_key(7), torch.arange(8))
+    for shape in ((), (5,), (65024,)):
+        a = prng.random_bits(keys, shape)
+        c = prng.random_bits(keys.to(dev), shape).cpu()
+        assert torch.equal(a, c)
+        assert torch.equal(prng.uniform(keys, shape),
+                           prng.uniform(keys.to(dev), shape).cpu())
+    g = prng.gumbel(keys, (65024,))
+    gc = prng.gumbel(keys.to(dev), (65024,)).cpu()
+    ulp = torch.from_numpy(np.spacing(np.maximum(g.abs().numpy(), 1.0)
+                                      .astype(np.float32)))
+    assert ((gc - g).abs() <= 4 * ulp).all()
+    assert torch.equal(prng.fold_in(keys.to(dev), 3).cpu(),
+                       prng.fold_in(keys, 3))
+
+
+def test_sampler_on_cuda_equals_cpu(dev):
+    """The same f32 logits sample the same tokens (where the perturbed
+    top two differ by more than 1e-5) and the same top-k candidates on
+    the card as on the CPU; so do the speculative accept function's
+    emissions."""
+    from repro_torch.core import prng
+    from repro_torch.serve import engine as teng
+    rng = np.random.default_rng(0)
+    slots, vocab = 8, 65024
+    lg = torch.from_numpy((rng.standard_normal((slots, vocab)) * 3).astype(
+        np.float32))
+    ids = np.stack([np.arange(slots) + 100, np.arange(slots) % 3,
+                    np.arange(slots) * 5], 1)
+    mask = torch.full((slots, 8), -1, dtype=torch.int32)
+    mask[3, :4] = torch.tensor([5, 17, 900, 64000])
+    base = prng.prng_key(3)
+    for temperature in (1.0, 0.7):
+        fn = teng.make_sample_fn(temperature, 4)
+        t_cpu, i_cpu, l_cpu = fn(lg, base, ids, mask)
+        t_gpu, i_gpu, l_gpu = fn(lg.to(dev), base, ids, mask.to(dev))
+        keys = teng.derive_sample_key(base, *torch.from_numpy(ids).T)
+        scores = prng.gumbel(keys, (vocab,)) + \
+            teng.apply_token_masks(lg, mask) / temperature
+        top = scores.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 1e-5
+        assert torch.equal(t_cpu[clear], t_gpu.cpu()[clear])
+        assert torch.equal(i_cpu, i_gpu.cpu())
+        torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-6, atol=1e-6)
+    chunk = 4
+    lg3 = lg[:, None].repeat(1, chunk, 1).contiguous()
+    toks = torch.from_numpy(rng.integers(0, vocab, (slots, chunk)).astype(
+        np.int32))
+    toks[:, 1] = lg.argmax(-1).int()
+    start = torch.zeros(slots, dtype=torch.int64)
+    n_draft = torch.full((slots,), chunk - 1, dtype=torch.int64)
+    masks = torch.full((slots, chunk, 8), -1, dtype=torch.int32)
+    for temperature in (0.0, 1.0):
+        fn = teng.make_spec_accept_fn(temperature)
+        e_cpu, n_cpu = fn(lg3, toks, start, n_draft, base, ids, masks)
+        e_gpu, n_gpu = fn(lg3.to(dev), toks, start, n_draft, base, ids,
+                          masks)
+        assert torch.equal(n_cpu, n_gpu.cpu())
+        for i in range(slots):
+            assert torch.equal(e_cpu[i, :n_cpu[i]],
+                               e_gpu.cpu()[i, :n_cpu[i]])

@@ -6,9 +6,9 @@ whose host buffers alias device memory under this jax version.
 
 Plus the engine's own contracts: prefix reuse and copy-on-write fire,
 pool/table invariants hold after every step, what a step reads never
-aliases the scheduler's host arrays, features outside the ported
-engine raise NotImplementedError, and a pool below the hard floor
-raises ValueError.
+aliases the scheduler's host arrays, what stays outside the port (media,
+non-dense stacks, the QAT forward) raises NotImplementedError, and a
+pool below the hard floor raises ValueError.
 """
 import numpy as np
 import pytest
@@ -27,6 +27,7 @@ from test_torch_model import build  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.serve.engine import make_unified_step  # noqa: E402
 
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 MAX_LEN, NEW = 64, 4
@@ -128,7 +129,8 @@ def chunked_oracle(jp, jcfg, prompt, steps):
     return toks, margins
 
 
-@pytest.mark.parametrize("name", ["granite-34b", "chatglm3-6b"])
+@pytest.mark.parametrize("name", ["granite-34b", "chatglm3-6b", "yi-34b",
+                                  "llama3-405b"])
 @pytest.mark.parametrize("policy", list(POLICIES))
 def test_greedy_tokens_match_reference_rollout(name, policy):
     """Greedy tokens equal the reference's.  The smoke models' bf16 logits
@@ -216,20 +218,30 @@ def test_matches_unbatched_engine():
 
 
 def test_outside_the_slice_raises():
+    """What the port still refuses: media inputs, a non-dense stack and
+    the QAT forward (NotImplementedError); a pool below the hard floor
+    and an oversize prompt under oversize='error' (ValueError)."""
+    from repro_torch.configs.base import BlockSpec
+    from repro_torch.nn.linear import ternary_dense_apply
     pol, kv = POLICIES["int4_packed"]
     _, _, cfg, tp = build("granite-34b", pol, kv)
     kw = dict(batch_slots=2, max_len=MAX_LEN, device="cpu")
-    for bad in (dict(spec_k=2), dict(greedy=False)):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(tp, cfg, **kw, **bad)
+    eng = ServeEngine(tp, cfg, **kw)
+    p = np.arange(5, dtype=np.int32)
+    with pytest.raises(NotImplementedError, match="media"):
+        eng.submit(Request(0, p, 2, media=np.zeros((4, 8), np.float32)))
+    hybrid = cfg.replace(layout=(BlockSpec("mamba", None),
+                                 BlockSpec("attn", "mlp")))
+    with pytest.raises(NotImplementedError, match="dense"):
+        ServeEngine(tp, hybrid, **kw)
+    with pytest.raises(NotImplementedError, match="dense"):
+        tfm.init(cfg.replace(family="moe"), device="cpu")
+    master = {"w": torch.zeros((cfg.d_model, 16))}
+    with pytest.raises(NotImplementedError, match="QAT"):
+        ternary_dense_apply(master, torch.zeros((1, cfg.d_model)),
+                            cfg.ternary)
     # below the hard floor ceil(64 / 16) + 1 = 5 blocks
     with pytest.raises(ValueError):
         ServeEngine(tp, cfg, **kw, num_blocks=4)
-    eng = ServeEngine(tp, cfg, **kw)
-    p = np.arange(5, dtype=np.int32)
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(0, p, 2, n=2))
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(1, p, 2, allowed_tokens=lambda _: [1]))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="oversize"):
         eng.submit(Request(2, np.zeros(MAX_LEN + 1, np.int32), 2))

@@ -153,7 +153,7 @@ def test_swap_in_restores_kv_bytes(kv):
                           else {"k", "v"})
     eng._preempt(0)
     eng.validate()
-    arena = eng._resume[req.uid]
+    arena = eng._resume[(req.uid, req.sample_index)]
     assert sorted(arena["swap"]) == [0, 1] and arena["covered"] == 16
     for jb in (0, 1):
         for key, t in saved.items():
